@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
 
-Drives the port's main path (``columbiaimagesearch_tpu_torch``) once at the
-headline size of the JAX package's query benchmark: 10,485,760 rows,
-V=4096, M=8, S=256, D=256, quota 10,000, limit 100. Phases:
+Drives the port's paths (``columbiaimagesearch_tpu_torch``) once each: the
+probed query path at the headline size of the JAX package's query
+benchmark (10,485,760 rows, V=4096, M=8, S=256, D=256, quota 10,000, limit
+100), the release model's PCA front end at its widths, and the exhaustive
+exact-ADC path at face-index scale (8,388,608 rows, V=256, M=8, S=256,
+D=128). Phases:
 
 0. device: requires CUDA; prints the card's name and power limit;
-1. build: compiles ``csrc/lut_build.cu`` with nvcc for sm_90a;
+1. build: compiles ``csrc/lut_build.cu`` and ``csrc/adc_scan.cu`` with
+   nvcc for sm_90a, one nvcc each, started together;
 2. kernel vs plain: the LUT kernel against its plain PyTorch version at
-   the headline shapes (NQ 1 and 100) and a small odd shape;
+   the headline shapes (NQ 1 and 100), the exhaustive path's all-V shape
+   and small odd shapes; the scan kernel against its plain version at the
+   documented profile configuration (scripts/profile_exhaustive.py: V=64,
+   1,048,576 random codes, NQ 8 and 64) and a small odd shape with
+   count-0 blocks;
 3. main path: a seeded random model, the gaussian-mixture corpus encoded
    with ``lopq_encode`` and indexed by ``LOPQSearcherTorch`` with a float32
    rerank store on the card, request waves through ``search_batch`` with
@@ -20,7 +28,18 @@ V=4096, M=8, S=256, D=256, quota 10,000, limit 100. Phases:
    searcher's wave model (``_bytes_per_query``);
 6. profile: a torch.profiler trace of one steady-state ``search_batch``
    wave with and without rerank: device busy time, idle share and the top
-   ops (chrome traces in ``build/profile/``).
+   ops (chrome traces in ``build/profile/``);
+7. pca: a ``LOPQModelPCA`` at the release widths (``pca_P [4096, 256]``)
+   over the headline model's tables: 262,144 raw rows through
+   ``add_data(store_feats=True)`` and a 100-query rerank wave, held equal
+   to a plain-model searcher given the projected rows and queries;
+8. exhaustive: the face-search configuration (conf/conf_search_face_local
+   .json, 128-d embeddings) with a seeded model, 8,388,608 rows through
+   ``ExhaustiveADC`` (scan kernel vs plain at NQ=8 on that index, then
+   ``search_batch`` at nq 8 and 64, k=100, with the LUT and scan kernels'
+   launch counts read around it), a torch.profiler trace of one launch
+   at each nq, and ``ExhaustiveADCSearcher`` on a 100,000-row subset.
+   The headline state is freed first.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Run from the root of a checkout:
@@ -35,6 +54,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -43,6 +63,24 @@ import torch
 HEADLINE = dict(rows=10_485_760, train=262_144, V=4096, M=8, S=256, D=256,
                 quota=10_000, limit=100, rerank_nb=1000, wave=100, waves=3,
                 B=64, strip_rung=(256, 16), seed=0)
+
+#: the face-search configuration (conf/conf_search_face_local.json:2-5;
+#: 128-d embeddings, columbiaimagesearch_tpu/models/face.py:25) at 128 V^2
+#: rows, the regime columbiaimagesearch_tpu/index/pallas_adc.py:18-20 names
+FACE = dict(rows=8_388_608, train=262_144, V=256, M=8, S=256, D=128, k=100,
+            nqs=(8, 64), subset=100_000, seed=0)
+#: the release model's PCA widths (conf/conf_search_production.json)
+PCA = dict(raw_dim=4096, rows=262_144, wave=100, seed=0)
+
+KERNELS = ("lut_build", "adc_scan")
+
+#: scan kernel checks: (label, rows, V, M, S, NQ, odd). The profile
+#: configuration of scripts/profile_exhaustive.py:28-35 (uniform random
+#: codes), and a small odd shape: ragged multi-block cells and count-0
+#: blocks.
+SCAN_CASES = [("profile NQ=8", 1 << 20, 64, 8, 256, 8, False),
+              ("profile NQ=64", 1 << 20, 64, 8, 256, 64, False),
+              ("small odd NQ=3", 3000, 37, 4, 32, 3, True)]
 
 #: kernel vs plain tolerance: fp32 both sides, sums in another order
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-4
@@ -145,18 +183,21 @@ def make_model(train, V, M, S, g):
 
 
 def phase_build():
+    """Build every kernel, one nvcc each, all started together."""
     from columbiaimagesearch_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.load_library("lut_build")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.load_library, KERNELS))
     seconds = time.perf_counter() - t0
-    nvcc_s, nvcc_log = build.BUILD_LOGS["lut_build"]
-    log(f"build: lut_build from {build.source_path('lut_build')} "
-        f"flags={' '.join(build.NVCC_FLAGS)} nvcc={nvcc_s:.2f}s "
-        f"total={seconds:.2f}s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"build: ptxas: {line.strip()}")
+    for name in KERNELS:
+        nvcc_s, nvcc_log = build.BUILD_LOGS[name]
+        log(f"build: {name} from {build.source_path(name)} "
+            f"flags={' '.join(build.NVCC_FLAGS)} nvcc={nvcc_s:.2f}s")
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"build: {name} ptxas: {line.strip()}")
+    log(f"build: all kernels in {seconds:.2f}s")
     return seconds
 
 
@@ -185,6 +226,7 @@ def phase_kernel_check(dev, card, seed):
     head = None
     cases = [("headline NQ=1", 1, 4096, 128, 4, 256, 64),
              ("headline NQ=100", 100, 4096, 128, 4, 256, 64),
+             ("exhaustive all-V NQ=64", 64, 256, 64, 4, 256, 256),
              ("small odd", 3, 37, 32, 4, 32, 8),
              ("ragged tile", 100, 37, 32, 4, 32, 12)]
     for label, NQ, V, Dh, F, S, B in cases:
@@ -420,51 +462,66 @@ def phase_memory(dev, cfg, state, card):
     return out
 
 
-def phase_profile(dev, cfg, state, card, out_dir):
-    """torch.profiler trace of one steady-state search_batch wave, with
-    and without rerank: wall time, device busy time (union of kernel and
-    copy intervals), device idle share, and the top ops by device time.
-    The chrome traces are written to ``out_dir``."""
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profile")
+
+
+def trace(fn, name):
+    """torch.profiler trace of one call of ``fn``, ended by a sync; the
+    chrome trace goes to ``PROFILE_DIR/<name>.json``.
+
+    :returns: (wall ms (profiled), device busy ms (union of kernel and
+        copy intervals), device ops, log lines of the top 10 ops by
+        device time)
+    """
     from torch.profiler import ProfilerActivity, profile
 
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(PROFILE_DIR, f"{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    avgs = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    top = [f"profile:   {a.key[:48]:48s} self device "
+           f"{getattr(a, key) / 1e3:.3f} ms x{a.count}"
+           for a in sorted(avgs, key=lambda a: -getattr(a, key))[:10]]
+    return wall_ms, busy_us / 1e3, len(spans), top
+
+
+def phase_profile(dev, cfg, state, card):
+    """torch.profiler trace of one steady-state search_batch wave, with
+    and without rerank: wall time, device busy time, device idle share,
+    and the top ops by device time."""
     s = state["searcher"]
-    os.makedirs(out_dir, exist_ok=True)
     for rnb in (None, cfg["rerank_nb"]):
         X = mixture(cfg["wave"], state["comp"], state["g"])
         kw = dict(quota=cfg["quota"], limit=cfg["limit"], with_codes=False,
                   rerank_nb=rnb)
         s.search_batch(X, **kw)                # settle the tier hint
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            s.search_batch(X, **kw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        path = os.path.join(out_dir, f"wave_rerank{rnb or 0}.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                       if e.get("cat") in ("kernel", "gpu_memcpy",
-                                           "gpu_memset"))
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
-        busy_ms = busy_us / 1e3
+        wall_ms, busy_ms, n_ops, top = trace(
+            lambda: s.search_batch(X, **kw), f"wave_rerank{rnb or 0}")
         log(f"profile: search_batch wave rerank_nb={rnb}: wall "
             f"{wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms, "
-            f"idle share {1 - busy_ms / wall_ms:.3f}, "
-            f"{len(spans)} device ops, "
+            f"idle share {1 - busy_ms / wall_ms:.3f}, {n_ops} device ops, "
             f"tier hint {s.probe_stats['wave_log'][-1]} [{card}]")
-        avgs = prof.key_averages()
-        key = ("self_device_time_total"
-               if hasattr(avgs[0], "self_device_time_total")
-               else "self_cuda_time_total")
-        for a in sorted(avgs, key=lambda a: -getattr(a, key))[:10]:
-            log(f"profile:   {a.key[:48]:48s} self device "
-                f"{getattr(a, key) / 1e3:.3f} ms x{a.count}")
+        for line in top:
+            log(line)
 
 
 def phase_numbers(dev, cfg, state, card):
@@ -533,6 +590,267 @@ def phase_numbers(dev, cfg, state, card):
     return out
 
 
+def _scan_compare(label, got, want, card, k_ms, p_ms):
+    """Scan kernel vs plain: identical +inf positions, the finite values
+    within LUT_RTOL/LUT_ATOL. Returns the max abs error."""
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf):
+        raise AssertionError(f"adc_scan {label}: +inf positions differ")
+    g, w = got[~inf], want[~inf]
+    max_abs = float((g - w).abs().max()) if w.numel() else 0.0
+    log(f"kernel check: adc_scan {label}: {int(inf.sum())} +inf of "
+        f"{want.numel()}, max_abs_err={max_abs:.3e} (rtol {LUT_RTOL}, atol "
+        f"{LUT_ATOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} [{card}]")
+    if not torch.allclose(g, w, rtol=LUT_RTOL, atol=LUT_ATOL):
+        raise AssertionError(f"adc_scan disagrees with plain ({label})")
+    return max_abs
+
+
+def _time_scan(args, V, plain_iters=3):
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        adc_scan_all,
+        adc_scan_all_plain,
+    )
+
+    k_ms = float(np.median(time_ms(lambda: adc_scan_all(*args, V=V), 10)))
+    p_ms = float(np.median(time_ms(
+        lambda: adc_scan_all_plain(*args, V=V), plain_iters)))
+    return k_ms, p_ms
+
+
+def phase_scan_check(dev, card, seed):
+    """Scan kernel vs plain version at each of SCAN_CASES."""
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        BLK,
+        adc_scan_all,
+        adc_scan_all_plain,
+        build_padded_layout,
+    )
+
+    rng = np.random.RandomState(seed + 2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    worst = 0.0
+    for label, n, V, M, S, NQ, odd in SCAN_CASES:
+        if odd:        # half the rows in 5 cells: multi-block ragged runs
+            cells = np.concatenate([rng.randint(0, 5, n // 2),
+                                    rng.randint(0, V * V, n - n // 2)])
+        else:
+            cells = rng.randint(0, V, n) * V + rng.randint(0, V, n)
+        fine = rng.randint(0, S, (n, M)).astype(np.uint8)
+        codes, bc, bn, _ = build_padded_layout(cells, fine)
+        if odd:        # count-0 blocks at the front, middle and end
+            at = [0, len(bc) // 2, len(bc)]
+            codes = np.insert(codes.reshape(-1, BLK, M), at, 1,
+                              axis=0).reshape(-1, M)
+            bc = np.insert(bc, at, [0, 5, V * V - 1]).astype(np.int32)
+            bn = np.insert(bn, at, 0).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (codes, bc, bn)] + [
+            10 * torch.rand(V, M // 2, S, NQ, generator=g, device=dev)
+            for _ in range(2)]
+        got = adc_scan_all(*args, V=V)
+        torch.cuda.synchronize()
+        want = adc_scan_all_plain(*args, V=V)
+        k_ms, p_ms = _time_scan(args, V)
+        worst = max(worst, _scan_compare(
+            f"{label} (V={V} M={M} S={S} rows={n} padded={len(codes)})",
+            got, want, card, k_ms, p_ms))
+        del got, want, args
+    return worst
+
+
+def phase_pca(dev, cfg, state, card):
+    """The release model's PCA front end: a LOPQModelPCA with a seeded
+    orthonormal ``pca_P [4096, 256]`` over the headline model's tables.
+    Raw rows go through ``add_data(store_feats=True)`` and raw queries
+    through one rerank wave; the results must equal a plain-model
+    searcher's given ``apply_PCA`` of the same rows and queries."""
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    base = state["searcher"].model
+    g, comp = state["g"], state["comp"]
+    D = 2 * int(base.Cs.shape[2])
+    n, raw_dim = PCA["rows"], PCA["raw_dim"]
+    P = torch.linalg.qr(torch.randn(raw_dim, D, generator=g, device=dev))[0]
+    mu = 0.1 * torch.randn(raw_dim, generator=g, device=dev)
+    pm = LOPQModelPCA(base.Cs, base.Rs, base.mus, base.subs, P, mu,
+                      device=dev)
+    raw = mixture(n, comp, g) @ P.T + mu        # apply_PCA(raw) ~ mixture
+    wave = mixture(PCA["wave"], comp, g) @ P.T + mu
+    wave[:4] = raw[:4]
+    t0 = time.perf_counter()
+    ps = LOPQSearcherTorch(pm, capacity_hint=n)
+    ps.add_data(raw, store_feats=True)
+    nb = ps.get_nb_indexed()
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    plain = LOPQSearcherTorch(base, capacity_hint=n)
+    plain.add_data(pm.apply_PCA(raw), store_feats=True)
+    kw = dict(quota=cfg["quota"], limit=cfg["limit"], with_dists=True,
+              with_codes=False, rerank_nb=cfg["rerank_nb"])
+    t0 = time.perf_counter()
+    got = ps.search_batch(wave, **kw)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    want = plain.search_batch(pm.apply_PCA(wave), **kw)
+    log(f"pca: LOPQModelPCA pca_P {tuple(P.shape)}: add_data of {n} raw "
+        f"rows (store_feats) in {add_s:.2f}s, nb={nb}, "
+        f"has_rerank_feats={ps.has_rerank_feats}; one {PCA['wave']}-query "
+        f"wave with rerank_nb={cfg['rerank_nb']} in {wave_ms:.1f} ms "
+        f"(first wave, host clock) [{card}]")
+    if nb != n or not ps.has_rerank_feats:
+        raise AssertionError(f"pca: indexed {nb} rows of {n}, "
+                             f"has_rerank_feats={ps.has_rerank_feats}")
+    _check_results(got, cfg["limit"], "pca wave")
+    if got != want:
+        raise AssertionError("pca: LOPQModelPCA searcher differs from the "
+                             "plain-model searcher on projected inputs")
+    for j in range(4):
+        if got[j][0][0].id != j:
+            raise AssertionError(f"pca: indexed raw row {j} came back as "
+                                 f"{got[j][0][0]}")
+    log(f"pca: checks passed: results equal the plain-model searcher's on "
+        f"apply_PCA inputs ({PCA['wave']} queries x {cfg['limit']}), 4 "
+        f"indexed raw rows returned first")
+
+
+def phase_exhaustive(dev, card):
+    """The exhaustive exact-ADC path at face-index scale (FACE)."""
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        BLK,
+        ExhaustiveADC,
+        ExhaustiveADCSearcher,
+        adc_scan_all,
+        adc_scan_all_plain,
+        build_query_luts,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+
+    cfg = FACE
+    V, k, n = cfg["V"], cfg["k"], cfg["rows"]
+    sync = torch.cuda.synchronize
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 7)
+    comp = torch.randn(256, cfg["D"], generator=g, device=dev)
+    comp /= comp.norm(dim=1, keepdim=True)
+    t0 = time.perf_counter()
+    model = make_model(mixture(cfg["train"], comp, g), V, cfg["M"],
+                       cfg["S"], g)
+    rows = mixture(n, comp, g)
+    coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                               rows, chunk=8192)
+    coarse = coarse.cpu().numpy()
+    fine = fine.to(torch.uint8).cpu().numpy()
+    del rows
+    log(f"exhaustive: model (V={V} M={cfg['M']} S={cfg['S']} "
+        f"D={cfg['D']}) + {n} rows made and encoded in "
+        f"{time.perf_counter() - t0:.1f}s [{card}]")
+    ex = ExhaustiveADC(model)
+    t0 = time.perf_counter()
+    ex.build(coarse, fine)
+    build_s = time.perf_counter() - t0
+    npad = ex.n_blocks * BLK
+    log(f"exhaustive: ExhaustiveADC.build: {n} rows -> {npad} padded rows "
+        f"({ex.n_blocks} blocks), ratio {npad / n:.4f}, host "
+        f"{build_s:.2f}s")
+    d = ex._dev
+    Q = mixture(max(cfg["nqs"]), comp, g)
+
+    # The scan kernel vs plain on this index at NQ=8 (launches not counted).
+    lut0, lut1 = build_query_luts(Q[:8], d["Cs"], d["Rs"], d["mus"],
+                                  d["subs"])
+    args = (d["codes"], d["block_cell"], d["block_count"], lut0, lut1)
+    got = adc_scan_all(*args, V=V)
+    sync()
+    want = adc_scan_all_plain(*args, V=V)
+    k_ms, p_ms = _time_scan(args, V)
+    max_abs = _scan_compare(f"face NQ=8 (V={V} M={cfg['M']} S={cfg['S']} "
+                            f"rows={n} padded={npad})", got, want, card,
+                            k_ms, p_ms)
+    del got, want
+
+    adc_scan_all.launches = 0                  # counts this path only
+    build_luts.launches = 0
+    results, per_query = {}, {}
+    for nq in cfg["nqs"]:
+        ex.NQ = nq
+        X = Q[:nq]
+        results[nq] = ex.search_batch(X, k=k)
+        per_query[nq] = float(np.median(host_ms(
+            lambda: ex.search_batch(X, k=k), 5, sync))) / nq
+    es = ExhaustiveADCSearcher(model)
+    sub = cfg["subset"]
+    es.add_codes_from_dict({i: (tuple(coarse[i]), tuple(fine[i]))
+                            for i in range(sub)})
+    nb_sub = es.get_nb_indexed()
+    es_res = [es.search(Q[i], quota=k, with_dists=True) for i in range(2)]
+    sync()
+    adc_launches, lut_launches = adc_scan_all.launches, build_luts.launches
+    for nq in cfg["nqs"]:
+        log(f"exhaustive: search_batch nq={nq} k={k}: p50 "
+            f"{per_query[nq]:.4f} ms/query (host clock, p50 of 5 "
+            f"launches) [{card}]")
+    log(f"exhaustive: adc_scan launches={adc_launches}, lut_build "
+        f"launches={lut_launches}; ExhaustiveADCSearcher indexed {nb_sub}")
+    if adc_launches <= 0 or lut_launches <= 0:
+        raise AssertionError("the exhaustive path did not launch both "
+                             "adc_scan and lut_build")
+
+    for nq, res in results.items():
+        for i, (ids, dists) in enumerate(res):
+            if len(ids) != k or len(set(ids)) != k:
+                raise AssertionError(f"exhaustive nq={nq} query {i}: "
+                                     f"{len(set(ids))} distinct of {k}")
+            if not (np.isfinite(dists).all() and (np.diff(dists) >= 0).all()):
+                raise AssertionError(f"exhaustive nq={nq} query {i}: "
+                                     "distances not finite ascending")
+    # A selection made on the plain version's distances (a stable sort:
+    # lower padded position first on ties).
+    plain = adc_scan_all_plain(*args, V=V)[:4]
+    pv, pi = torch.sort(plain, dim=1, stable=True)
+    pv, pi = pv[:, :k].cpu().numpy(), pi[:, :k].cpu().numpy()
+    swaps = 0
+    for q in range(4):
+        ids, dists = results[8][q]
+        want_ids = ex._ids[pi[q]].tolist()
+        np.testing.assert_allclose(dists, pv[q], rtol=LUT_RTOL,
+                                   atol=LUT_ATOL)
+        diff = np.array(ids) != np.array(want_ids)
+        if (np.abs(dists - pv[q])[diff]
+                > 1e-4 * np.maximum(1, pv[q][diff])).any():
+            raise AssertionError(f"exhaustive query {q}: ids differ from "
+                                 "the plain selection beyond rounding ties")
+        swaps += int(diff.sum())
+    del plain, pv, pi, lut0, lut1, args
+    for nq in cfg["nqs"]:
+        ex.NQ = nq
+        wall_ms, busy_ms, n_ops, top = trace(
+            lambda: ex.search_batch(Q[:nq], k=k), f"exhaustive_nq{nq}")
+        log(f"profile: exhaustive search_batch nq={nq} k={k}: wall "
+            f"{wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms, "
+            f"idle share {1 - busy_ms / wall_ms:.3f}, {n_ops} device ops "
+            f"[{card}]")
+        for line in top:
+            log(line)
+    ref = ExhaustiveADC(model)
+    ref.build(coarse[:sub], fine[:sub], ids=list(range(sub)))
+    for i, (res, visited) in enumerate(es_res):
+        rids, rd = ref.search(Q[i], k=k)
+        if ([r.id for r in res] != rids or [r.dist for r in res]
+                != [float(x) for x in rd] or visited != V * V
+                or nb_sub != sub):
+            raise AssertionError("ExhaustiveADCSearcher differs from "
+                                 "ExhaustiveADC on the same rows")
+    log(f"exhaustive: checks passed: {k} distinct ids with finite ascending "
+        f"distances per query; 4 queries equal a stable selection on the "
+        f"plain distances ({swaps} rounding-tie swaps); "
+        f"ExhaustiveADCSearcher equals ExhaustiveADC on {sub} rows")
+    return dict(adc_launches=adc_launches, lut_launches=lut_launches,
+                max_abs=max_abs, ms=k_ms, plain_ms=p_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -550,20 +868,33 @@ def main():
     log(card)
     phase_build()
     worst, (k_ms, p_ms) = phase_kernel_check(dev, card, cfg["seed"])
+    scan_worst = phase_scan_check(dev, card, cfg["seed"])
     state, launches = phase_main_path(dev, cfg, card)
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
     phase_query_parity(dev, cfg, state)
     phase_numbers(dev, cfg, state, card)
     phase_memory(dev, cfg, state, card)
-    phase_profile(dev, cfg, state, card, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "build", "profile"))
+    phase_profile(dev, cfg, state, card)
+    phase_pca(dev, cfg, state, card)
+    del state
+    torch.cuda.empty_cache()
+    ex = phase_exhaustive(dev, card)
+    log(f"launches: lut_build {launches} on the probed path + "
+        f"{ex['lut_launches']} on the exhaustive path; adc_scan "
+        f"{ex['adc_launches']} on the exhaustive path")
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
-        "launches": launches, "max_abs_err": worst, "ms": k_ms,
-        "plain_ms": p_ms}]}))
+        "launches": launches + ex["lut_launches"], "max_abs_err": worst,
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "adc_scan", "route": "cuda",
+        "source": "columbiaimagesearch_tpu_torch/csrc/adc_scan.cu",
+        "replaces": "columbiaimagesearch_tpu/index/pallas_adc.py:35",
+        "launches": ex["adc_launches"],
+        "max_abs_err": max(scan_worst, ex["max_abs"]), "ms": ex["ms"],
+        "plain_ms": ex["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

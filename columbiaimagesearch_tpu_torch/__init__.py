@@ -1,9 +1,11 @@
 """columbiaimagesearch_tpu_torch — the PyTorch/CUDA port of columbiaimagesearch_tpu.
 
 This package runs the LOPQ query path (encode, CSR multi-index, probed ADC
-query with exact rerank, the probe ladder and the wave-driving searcher) in
-PyTorch, with the ADC lookup-table kernel hand-written in CUDA C++ for
-Hopper (``csrc/lut_build.cu``). It imports ``torch`` and numpy only, never
+query with exact rerank, the probe ladder and the wave-driving searcher)
+and the exhaustive exact-ADC search in PyTorch, with both of the JAX
+package's TPU kernels hand-written in CUDA C++ for Hopper: the ADC
+lookup tables (``csrc/lut_build.cu``) and the exhaustive ADC scan
+(``csrc/adc_scan.cu``). It imports ``torch`` and numpy only, never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
 
@@ -11,7 +13,8 @@ Layout (JAX counterpart in brackets):
 
 - ``device.py``: fp32 precision settings (TF32 off) and device memory.
 - ``utils/chunking.py``, ``utils/codes.py`` [utils/chunking.py, utils/codes.py]
-- ``index/model.py`` [index/model.py]: parameter container, npz I/O.
+- ``index/model.py`` [index/model.py]: ``LOPQModel`` and ``LOPQModelPCA``
+  (parameter containers, npz I/O).
 - ``index/encode.py`` [index/tpu_encode.py]: ``lopq_encode``.
 - ``index/csr.py`` [index/csr.py]: CSR build and in-place appends.
 - ``index/lut.py`` [index/tpu_query.py ``build_luts_pallas``]: the LUT
@@ -19,11 +22,22 @@ Layout (JAX counterpart in brackets):
 - ``index/query.py`` [index/tpu_query.py]: ``lopq_query`` and friends.
 - ``index/probe.py`` [index/tpu_query.py]: the probe-ladder policy.
 - ``index/searcher.py`` [index/searcher.py]: ``LOPQSearcherTorch``.
+- ``index/exhaustive_adc.py`` [index/pallas_adc.py]: the scan kernel's
+  wrapper and plain version, ``ExhaustiveADC``, ``ExhaustiveADCSearcher``.
 - ``kernels/build.py`` [native/build.py]: nvcc build + ctypes loading.
 """
 
 from columbiaimagesearch_tpu_torch import device  # noqa: F401  (TF32 off)
-from columbiaimagesearch_tpu_torch.index.model import LOPQCode, LOPQModel
+from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+    ExhaustiveADC,
+    ExhaustiveADCSearcher,
+)
+from columbiaimagesearch_tpu_torch.index.model import (
+    LOPQCode,
+    LOPQModel,
+    LOPQModelPCA,
+)
 from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
 
-__all__ = ["LOPQCode", "LOPQModel", "LOPQSearcherTorch"]
+__all__ = ["ExhaustiveADC", "ExhaustiveADCSearcher", "LOPQCode", "LOPQModel",
+           "LOPQModelPCA", "LOPQSearcherTorch"]

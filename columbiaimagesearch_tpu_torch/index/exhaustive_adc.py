@@ -1,0 +1,344 @@
+"""Exhaustive exact-ADC search: every indexed code is scored, no cell
+probing (port of columbiaimagesearch_tpu/index/pallas_adc.py, whose
+``_adc_kernel`` becomes ``csrc/adc_scan.cu``).
+
+Index layout (:func:`build_padded_layout`): codes sorted by cell id, every
+cell's run padded to BLK=128 rows, so each 128-row block belongs to one
+cell. Per batch of queries, :func:`build_query_luts` builds the ADC tables
+of all V clusters of both halves, and :func:`adc_scan_all` scores every
+padded row: ``sum_m lut_half(m)[cell half, m, code[r, m], q]``, ``+inf``
+on padding. Intended for N / V^2 >= ~128, e.g. face indexes (V=64..256
+over millions of faces), or wherever exact recall is worth the padding.
+
+:func:`adc_scan_all` launches the kernel for CUDA tensors and uses
+:func:`adc_scan_all_plain` for CPU tensors; on a CUDA tensor it launches or
+raises, never falls back. ``adc_scan_all.launches`` counts kernel launches.
+
+Differences from the JAX module: no ``interpret`` mode; the layout's block
+count is not rounded up to a multiple of the Pallas grid step (so ``NB`` is
+the JAX ``NB`` or one less); the last query chunk is not padded (nothing is
+compiled per shape).
+"""
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from columbiaimagesearch_tpu_torch.index.lut import _check, build_luts
+from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+from columbiaimagesearch_tpu_torch.index.searcher import (
+    Result,
+    ResultDist,
+    _pyid,
+)
+from columbiaimagesearch_tpu_torch.kernels.build import load_library
+
+BLK = 128    # rows per cell block; also the per-cell padding quantum
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def build_padded_layout(cells, fine):
+    """Host-side packing: cell-major order with per-cell BLK padding
+    (pallas_adc.py:129-166, vectorised; same outputs on the first NB
+    blocks).
+
+    :param cells: [N] int cell ids
+    :param fine: [N, M] uint8 fine codes
+    :returns: (codes_padded [NB*BLK, M] uint8, block_cell [NB] int32,
+        block_count [NB] int32, row_of [N] int64 -- padded position of each
+        input row)
+    """
+    cells = np.asarray(cells)
+    fine = np.asarray(fine, dtype=np.uint8)
+    order = np.argsort(cells, kind="stable")
+    uniq, counts = np.unique(cells, return_counts=True)
+    nblocks = (counts + BLK - 1) // BLK
+    bstart = np.zeros(len(uniq) + 1, dtype=np.int64)
+    np.cumsum(nblocks, out=bstart[1:])
+    NB = int(bstart[-1])
+    cstart = np.zeros(len(uniq) + 1, dtype=np.int64)
+    np.cumsum(counts, out=cstart[1:])
+
+    # Sorted row j belongs to cell u = u_of[j] at rank j - cstart[u].
+    u_of = np.repeat(np.arange(len(uniq)), counts)
+    pos = bstart[u_of] * BLK + (np.arange(len(cells)) - cstart[u_of])
+    row_of = np.empty(len(cells), dtype=np.int64)
+    row_of[order] = pos
+    codes_padded = np.zeros((NB * BLK, fine.shape[1]), dtype=np.uint8)
+    codes_padded[pos] = fine[order]
+
+    u_blk = np.repeat(np.arange(len(uniq)), nblocks)
+    block_cell = uniq[u_blk].astype(np.int32)
+    rank = np.arange(NB) - bstart[u_blk]
+    block_count = np.minimum(BLK, counts[u_blk] - rank * BLK).astype(np.int32)
+    return codes_padded, block_cell, block_count, row_of
+
+
+def build_query_luts(X, Cs, Rs, mus, subs):
+    """Per-split ADC tables for ALL V clusters for a batch of NQ queries
+    (pallas_adc.py:169-186): ``(lut0, lut1)``, each [V, F, S, NQ] float32.
+
+    The tables come from :func:`index.lut.build_luts` with every cluster
+    probed (the LUT kernel on the card, its plain version on the CPU).
+    """
+    NQ = X.shape[0]
+    V, Dh = Cs.shape[1], Cs.shape[2]
+    isel = torch.arange(V, dtype=torch.int32, device=X.device).expand(
+        NQ, 2, V).contiguous()
+    t = build_luts(X.reshape(NQ, 2, Dh).contiguous(), isel, Cs, Rs, mus,
+                   subs)                                  # [NQ, 2, V, F, S]
+    return (t[:, 0].permute(1, 2, 3, 0).contiguous(),
+            t[:, 1].permute(1, 2, 3, 0).contiguous())
+
+
+def adc_scan_all_plain(codes_padded, block_cell, block_count, lut0, lut1, *,
+                       V):
+    """Plain PyTorch version of :func:`adc_scan_all`: per-row gathers of
+    the M table entries, summed in m order, ``+inf`` on padding."""
+    F = codes_padded.shape[1] // 2
+    cell = block_cell.long().repeat_interleave(BLK)             # [Npad]
+    halves = (cell // V, cell % V)
+    acc = None
+    for m in range(2 * F):        # one [Npad, NQ] gather live at a time
+        h, f = divmod(m, F)
+        g = (lut0, lut1)[h][halves[h], f, codes_padded[:, m].long()]
+        acc = g if acc is None else acc.add_(g)
+    valid = (torch.arange(BLK, device=block_count.device)[None, :]
+             < block_count[:, None]).reshape(-1)
+    acc = torch.where(valid[:, None], acc, torch.full_like(acc, np.inf))
+    return acc.T.contiguous()
+
+
+def _library():
+    lib = load_library("adc_scan")
+    fn = lib.adc_scan
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def adc_scan_all(codes_padded, block_cell, block_count, lut0, lut1, *, V):
+    """Exhaustive ADC distances for NQ queries over every padded row.
+
+    :param codes_padded: [NB*BLK, M] uint8, cell-major, per-cell padded
+    :param block_cell: [NB] int32 cell id per block
+    :param block_count: [NB] int32 valid rows per block
+    :param lut0/lut1: [V, F, S, NQ] float32 per-split tables (F = M/2)
+    :returns: [NQ, NB*BLK] float32 distances (+inf on padding)
+    """
+    dev = codes_padded.device
+    if dev.type == "cpu":
+        return adc_scan_all_plain(codes_padded, block_cell, block_count,
+                                  lut0, lut1, V=V)
+    if dev.type != "cuda":
+        raise ValueError(f"adc_scan_all: unsupported device {dev}")
+    NB = block_cell.shape[0]
+    M = codes_padded.shape[1]
+    F, S, NQ = lut0.shape[1], lut0.shape[2], lut0.shape[3]
+    if M % 2 or F != M // 2:
+        raise ValueError(f"codes have M={M}; the tables need M even and "
+                         f"F = M/2, got F={F}")
+    if not 1 <= S <= 256:
+        raise ValueError(f"S={S}: uint8 codes need 1 <= S <= 256")
+    _check("codes_padded", codes_padded, torch.uint8, (NB * BLK, M), dev)
+    _check("block_cell", block_cell, torch.int32, (NB,), dev)
+    _check("block_count", block_count, torch.int32, (NB,), dev)
+    _check("lut0", lut0, torch.float32, (V, F, S, NQ), dev)
+    _check("lut1", lut1, torch.float32, (V, F, S, NQ), dev)
+    out = torch.empty((NQ, NB * BLK), dtype=torch.float32, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.adc_scan(codes_padded.data_ptr(), block_cell.data_ptr(),
+                       block_count.data_ptr(), lut0.data_ptr(),
+                       lut1.data_ptr(), out.data_ptr(), NB, M, V, S, NQ,
+                       stream)
+    if err != 0:
+        raise RuntimeError(f"adc_scan launch failed: CUDA error {err}")
+    adc_scan_all.launches += 1
+    return out
+
+
+adc_scan_all.launches = 0
+
+
+def _topk_ascending(d, k):
+    """The k smallest entries per row of ``d`` [n, N], ascending, lower
+    index first on ties: the order of ``lax.top_k(-d, k)``.
+
+    ``torch.topk`` promises no tie order. Its selection holds every entry
+    below the k-th value; where entries equal to the k-th value were left
+    out, the row takes the lowest-index ones instead. The selection is
+    then ordered by (value, index). Rows whose k-th value is not finite
+    keep ``torch.topk``'s choice among those entries (callers drop them).
+    """
+    vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    kth = vals[:, -1:]
+    short = torch.isfinite(kth[:, 0]) & ((d == kth).sum(1)
+                                         > (vals == kth).sum(1))
+    for r in torch.nonzero(short).flatten().tolist():
+        below = idx[r][vals[r] < kth[r]]
+        ties = torch.nonzero(d[r] == kth[r]).flatten()[:k - len(below)]
+        idx[r] = torch.cat([below, ties])
+    idx = torch.sort(idx, dim=1).values
+    vals, o = torch.sort(torch.gather(d, 1, idx), dim=1, stable=True)
+    return vals, torch.gather(idx, 1, o)
+
+
+class ExhaustiveADC:
+    """Exact-search facade over the scan kernel (pallas_adc.py:189-279).
+
+    >>> ex = ExhaustiveADC(model)
+    >>> ex.build(coarse, fine, ids)
+    >>> ids, dists = ex.search(q, k=10)
+    """
+
+    def __init__(self, model, nq=8):
+        """:param nq: queries per kernel launch"""
+        self.model = model
+        self.device = model.device
+        self.NQ = int(nq)
+        self._dev = None
+        self._ids = None
+        self.n_blocks = 0
+
+    def build(self, coarse, fine, ids=None):
+        coarse = np.asarray(coarse)
+        cells = (coarse[:, 0].astype(np.int64) * self.model.V
+                 + coarse[:, 1].astype(np.int64))
+        codes_padded, block_cell, block_count, row_of = \
+            build_padded_layout(cells, fine)
+        ratio = len(codes_padded) / max(len(cells), 1)
+        if ratio > 8 and len(codes_padded) > (1 << 22):
+            # Only a real-memory problem at scale; tiny test indexes pad
+            # heavily by construction and are fine.
+            raise ValueError(
+                f"exhaustive layout would pad {len(cells)} rows to "
+                f"{len(codes_padded)} ({ratio:.0f}x): cells average far "
+                f"fewer than BLK={BLK} rows at V={self.model.V}. Use the "
+                "probed searcher, or a smaller coarse codebook (the kernel "
+                "is intended for N/V^2 >= ~128, e.g. face indexes)")
+        n = len(cells)
+        if ids is None:
+            # Identity ids stay an int64 arange (no object boxing).
+            by_row = np.full(len(codes_padded), -1, dtype=np.int64)
+            by_row[row_of] = np.arange(n)
+        else:
+            ids_arr = np.empty(n, dtype=object)
+            ids_arr[:] = list(ids)
+            by_row = np.empty(len(codes_padded), dtype=object)
+            by_row[row_of] = ids_arr
+        self._ids = by_row
+        dev, m = self.device, self.model
+        self._dev = {
+            "codes": torch.from_numpy(codes_padded).to(dev),
+            "block_cell": torch.from_numpy(block_cell).to(dev),
+            "block_count": torch.from_numpy(block_count).to(dev),
+            "Cs": m.Cs, "Rs": m.Rs, "mus": m.mus, "subs": m.subs,
+        }
+        self.n_blocks = len(block_cell)
+
+    def search(self, x, k=10):
+        """Single query convenience -> (ids, dists)."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return self.search_batch(x[None], k=k)[0]
+
+    def search_batch(self, X, k=10):
+        """Exact top-k for a batch of queries; one kernel launch per
+        ``nq`` queries.
+
+        :returns: list of (ids, dists) per query: ids a list, dists a
+            float32 numpy array, finite rows only, ascending, lower padded
+            position first on ties
+        """
+        X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
+        if isinstance(self.model, LOPQModelPCA):
+            X = self.model.apply_PCA(X)
+        d = self._dev
+        results = []
+        for b in range(0, X.shape[0], self.NQ):
+            lut0, lut1 = build_query_luts(X[b:b + self.NQ], d["Cs"], d["Rs"],
+                                          d["mus"], d["subs"])
+            dists = adc_scan_all(d["codes"], d["block_cell"],
+                                 d["block_count"], lut0, lut1, V=self.model.V)
+            del lut0, lut1
+            kk = min(k, dists.shape[1])
+            vals, idx = _topk_ascending(dists, kk)
+            del dists
+            out_d, idx = vals.cpu().numpy(), idx.cpu().numpy()
+            for q in range(len(out_d)):
+                keep = np.isfinite(out_d[q])
+                sel = self._ids[idx[q][keep]]
+                results.append((sel.tolist() if sel.dtype != object
+                                else [_pyid(i) for i in sel], out_d[q][keep]))
+        return results
+
+
+class ExhaustiveADCSearcher:
+    """LOPQSearcher-compatible facade over :class:`ExhaustiveADC`
+    (pallas_adc.py:282-347).
+
+    Backend of SearcherLOPQ(exact=True): accumulates code dicts, rebuilds
+    the padded layout lazily (first insertion of each (cell, id) wins),
+    returns Result tuples. ``quota`` is ignored: every indexed item is
+    scored.
+    """
+
+    def __init__(self, model):
+        self.model = model
+        self.index = ExhaustiveADC(model)
+        self._coarse, self._fine, self._ids2 = [], [], []
+        self._dirty = False
+        self._mutlock = threading.RLock()
+        self.nb_indexed = 0
+
+    def add_codes_from_dict(self, codes_dict):
+        with self._mutlock:
+            for sid, (coarse, fine) in codes_dict.items():
+                self._coarse.append(coarse)
+                self._fine.append(fine)
+                self._ids2.append(sid)
+            self._dirty = True
+
+    def get_nb_indexed(self):
+        self._maybe_build()
+        return self.nb_indexed
+
+    def _maybe_build(self):
+        with self._mutlock:
+            self._maybe_build_locked()
+
+    def _maybe_build_locked(self):
+        if self._dirty and self._ids2:
+            seen = set()
+            coarse, fine, ids = [], [], []
+            for c, f, i in zip(self._coarse, self._fine, self._ids2):
+                key = (tuple(int(x) for x in c), i)
+                if key in seen:
+                    continue
+                seen.add(key)
+                coarse.append(c)
+                fine.append(f)
+                ids.append(i)
+            self.index.build(np.asarray(coarse, dtype=np.int32),
+                             np.asarray(fine, dtype=np.uint8), ids)
+            self.nb_indexed = len(ids)
+            self._dirty = False
+
+    def search(self, x, quota=10, limit=None, with_dists=False):
+        self._maybe_build()
+        if self.nb_indexed == 0:
+            return [], 0
+        k = limit if limit is not None else quota
+        ids, dists = self.index.search(x, k=k)
+        if with_dists:
+            out = [ResultDist(rid, None, float(d))
+                   for rid, d in zip(ids, dists)]
+        else:
+            out = [Result(rid, None) for rid in ids]
+        # visited = all cells, by construction
+        return out, self.model.V * self.model.V

@@ -1,5 +1,5 @@
 """LOPQ model parameters as tensors on an explicit device
-(port of columbiaimagesearch_tpu/index/model.py:145-253, 372-387).
+(port of columbiaimagesearch_tpu/index/model.py:145-253, 372-387, 403-487).
 
 The port's model is a parameter container: ``Cs [2, V, Dh]``,
 ``Rs [2, V, Dh, Dh]`` (applied as ``R @ r``), ``mus [2, V, Dh]`` and
@@ -8,8 +8,13 @@ encodes through :func:`index.encode.lopq_encode`. ``export_npz``/
 ``load_npz`` use the JAX package's npz layout (model.py:372-387), and
 :meth:`LOPQModel.from_numpy` takes a JAX ``LOPQModel``'s numpy tuples
 (``model.Cs, model.Rs, model.mus, model.subquantizers``), so both packages
-can run on the same weights. Training, ``.mat``/proto I/O and
-``LOPQModelPCA`` are not ported yet (ROADMAP.md).
+can run on the same weights.
+
+:class:`LOPQModelPCA` adds the PCA front end of the release model
+(``lopq_pca``): ``pca_P [D_raw, D]``, ``pca_mu [D_raw]`` and ``renorm``.
+``apply_PCA`` is one fp32 ``torch.matmul`` on the model's device (the JAX
+package runs it in numpy, outside any kernel). Training (``fit``,
+``fit_pca``) and ``.mat``/proto I/O are not ported yet (ROADMAP.md).
 """
 
 from collections import namedtuple
@@ -70,13 +75,71 @@ class LOPQModel:
 
     # ---------------------------------------------------------- persistence
 
+    def _npz_fields(self):
+        return dict(Cs=self.Cs.cpu().numpy(), Rs=self.Rs.cpu().numpy(),
+                    mus=self.mus.cpu().numpy(), subs=self.subs.cpu().numpy(),
+                    V=self.V, M=self.M)
+
     def export_npz(self, filename):
-        np.savez_compressed(
-            filename, Cs=self.Cs.cpu().numpy(), Rs=self.Rs.cpu().numpy(),
-            mus=self.mus.cpu().numpy(), subs=self.subs.cpu().numpy(),
-            V=self.V, M=self.M)
+        np.savez_compressed(filename, **self._npz_fields())
 
     @classmethod
     def load_npz(cls, filename, *, device):
         with np.load(filename) as d:
             return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], device=device)
+
+
+class LOPQModelPCA(LOPQModel):
+    """LOPQ over a PCA-reduced space: ``predict_batch`` applies PCA first
+    (columbiaimagesearch_tpu/index/model.py:403-487)."""
+
+    def __init__(self, Cs, Rs, mus, subs, pca_P, pca_mu, renorm=False, *,
+                 device):
+        """:param pca_P: [D_raw, D] projection; ``pca_mu``: [D_raw] mean;
+        ``renorm``: L2-normalize each projected row."""
+        super().__init__(Cs, Rs, mus, subs, device=device)
+        self.pca_P = torch.as_tensor(pca_P, dtype=torch.float32).to(
+            self.device).contiguous()
+        self.pca_mu = torch.as_tensor(pca_mu, dtype=torch.float32).to(
+            self.device).contiguous()
+        D = 2 * int(self.Cs.shape[2])
+        if (self.pca_P.ndim != 2 or self.pca_P.shape[1] != D
+                or tuple(self.pca_mu.shape) != (self.pca_P.shape[0],)):
+            raise ValueError(
+                f"pca_P {tuple(self.pca_P.shape)} and pca_mu "
+                f"{tuple(self.pca_mu.shape)} do not map onto D={D}")
+        self.renorm = bool(renorm)
+
+    @classmethod
+    def from_numpy(cls, Cs, Rs, mus, subs, pca_P, pca_mu, renorm=False, *,
+                   device):
+        """From a JAX ``LOPQModelPCA``: its parameter tuples (see
+        :meth:`LOPQModel.from_numpy`) plus ``pca_P``, ``pca_mu`` and
+        ``renorm``."""
+        return cls(np.stack(Cs), np.stack(Rs), np.stack(mus),
+                   np.stack([np.stack(h) for h in subs]), pca_P, pca_mu,
+                   renorm, device=device)
+
+    def apply_PCA(self, x):
+        """PCA-project (and with ``renorm`` L2-normalize) rows: ``[N, D_raw]``
+        array or tensor -> ``[N, D]`` float32 tensor on the model's device
+        (model.py:449-457)."""
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        out = torch.matmul(x - self.pca_mu, self.pca_P)
+        if self.renorm:
+            out = out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+        return out
+
+    def predict_batch(self, X):
+        """Code N raw vectors: PCA first, then the LOPQ encoder."""
+        return super().predict_batch(self.apply_PCA(X))
+
+    def _npz_fields(self):
+        return dict(super()._npz_fields(), pca_P=self.pca_P.cpu().numpy(),
+                    pca_mu=self.pca_mu.cpu().numpy(), renorm=self.renorm)
+
+    @classmethod
+    def load_npz(cls, filename, *, device):
+        with np.load(filename) as d:
+            return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], d["pca_P"],
+                       d["pca_mu"], bool(d["renorm"]), device=device)

@@ -10,7 +10,9 @@ exact first-insertion dedup. Queries are answered in waves through
 :func:`index.query.lopq_query` (square rungs build their tables with the
 LUT kernel) and walk the probe ladder (index/probe.py); with a resident
 feature store they rerank exactly on the device, or take the exact brute
-plan when the cost model prefers it.
+plan when the cost model prefers it. With a :class:`LOPQModelPCA` the
+searcher takes raw vectors: queries and stored rerank features are
+PCA-projected on the device (searcher.py:503-504, 1078-1079, 1374-1375).
 
 Differences from the JAX searcher:
 
@@ -43,7 +45,7 @@ from columbiaimagesearch_tpu_torch.index.csr import (
     append_and_build_csr,
     append_rows,
 )
-from columbiaimagesearch_tpu_torch.index.model import LOPQCode
+from columbiaimagesearch_tpu_torch.index.model import LOPQCode, LOPQModelPCA
 from columbiaimagesearch_tpu_torch.index.probe import (
     escalate_probe,
     prefer_brute,
@@ -233,11 +235,28 @@ class LOPQSearcherTorch:
 
     def add_data(self, data, ids=None, store_feats=False):
         """Encode raw vectors on the device and index them; with
-        ``store_feats`` the vectors are kept for device reranking."""
+        ``store_feats`` their index-space projection (PCA'd for a
+        ``LOPQModelPCA``) is kept for device reranking."""
         data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
         coarse, fine = self.model.predict_batch(data)
-        self.add_codes((coarse, fine), ids,
-                       feats=data if store_feats else None)
+        feats = None
+        if store_feats:
+            feats = (self.model.apply_PCA(data)
+                     if isinstance(self.model, LOPQModelPCA) else data)
+        self.add_codes((coarse, fine), ids, feats=feats)
+
+    def add_codes_from_dict(self, codes_dict):
+        """Index ``{id: (coarse, fine)}``: the ids are the keys in order,
+        the codes their values (searcher.py:195-198)."""
+        ids = list(codes_dict.keys())
+        self.add_codes([codes_dict[k] for k in ids], ids)
+
+    @property
+    def has_rerank_feats(self):
+        """True when the device feature store covers every indexed row."""
+        with self._mutlock:
+            self._pack_locked()
+            return self._buf_feats is not None and self.nb_indexed > 0
 
     def _pack(self):
         with self._mutlock:
@@ -529,6 +548,8 @@ class LOPQSearcherTorch:
         distances. ``with_codes=False`` skips building LOPQCode tuples.
         """
         X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
+        if isinstance(self.model, LOPQModelPCA):
+            X = self.model.apply_PCA(X)
         d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
         nq = X.shape[0]
         if nb == 0:
@@ -576,7 +597,8 @@ class LOPQSearcherTorch:
     def search(self, x, quota=10, limit=None, with_dists=False,
                rerank_nb=None):
         """One query; same contract as the JAX searcher's ``search``:
-        returns (results, visited). Runs as a one-query wave."""
+        returns (results, visited). Runs as a one-query wave (raw queries
+        of a ``LOPQModelPCA`` are projected there)."""
         x = torch.as_tensor(x, dtype=torch.float32)
         return self.search_batch(x[None, :], quota=quota, limit=limit,
                                  with_dists=with_dists,

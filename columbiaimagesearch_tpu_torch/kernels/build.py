@@ -6,7 +6,8 @@ checkout, keyed by a hash of its source, the flags and ``nvcc --version``,
 and loaded with ctypes. The pattern is columbiaimagesearch_tpu/native/
 build.py's, with one change: a failed build or load raises instead of
 returning None, because a kernel the main path needs has no fallback on
-the card.
+the card. Each kernel has its own lock, so several kernels can be built
+at once from several threads (one nvcc each).
 """
 
 import ctypes
@@ -24,7 +25,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()      # guards _LOCKS
+_LOCKS = {}                   # name -> lock held while building/loading it
 _CACHE = {}
 #: name -> (build seconds, compiler output incl. ptxas register/smem
 #: report); seconds is 0.0 when a cached library was loaded
@@ -65,6 +67,8 @@ def load_library(name: str) -> ctypes.CDLL:
     :raises OSError: when the built library cannot be loaded
     """
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _CACHE:
             return _CACHE[name]
         src = source_path(name)

@@ -1,6 +1,6 @@
 """The port runs without JAX: a fresh interpreter imports every module of
-``columbiaimagesearch_tpu_torch``, answers a tiny CPU search, and never
-loads ``jax``, the JAX package or pandas."""
+``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA
+and exhaustive), and never loads ``jax``, the JAX package or pandas."""
 
 import os
 import subprocess
@@ -14,8 +14,9 @@ import numpy as np
 import torch
 
 import columbiaimagesearch_tpu_torch
-from columbiaimagesearch_tpu_torch.index import (csr, encode, lut, model,
-                                                  probe, query, searcher)
+from columbiaimagesearch_tpu_torch.index import (csr, encode, exhaustive_adc,
+                                                  lut, model, probe, query,
+                                                  searcher)
 from columbiaimagesearch_tpu_torch.kernels import build
 
 rng = np.random.RandomState(0)
@@ -30,7 +31,22 @@ s.add_data(X, store_feats=True)
 res, visited = s.search(X[7], quota=50, limit=5, with_dists=True,
                         rerank_nb=20)
 assert res[0].id == 7 and res[0].dist == 0.0, res
+P = np.linalg.qr(rng.randn(3 * Dh, 2 * Dh))[0]
+pm = model.LOPQModelPCA(m.Cs, m.Rs, m.mus, m.subs, P, np.zeros(3 * Dh),
+                        device="cpu")
+ps = searcher.LOPQSearcherTorch(pm)
+ps.add_data(X @ P.T, store_feats=True)
+pres, _ = ps.search(X[7] @ P.T, quota=50, limit=5, with_dists=True,
+                    rerank_nb=20)
+assert pres[0].id == 7 and pres[0].dist < 1e-6, pres
+ex = exhaustive_adc.ExhaustiveADCSearcher(m)
+coarse, fine = m.predict_batch(X)
+ex.add_codes_from_dict({i: (tuple(c), tuple(f))
+                        for i, (c, f) in enumerate(zip(coarse, fine))})
+eres, evisited = ex.search(X[7], quota=5, with_dists=True)
+assert len(eres) == 5 and evisited == V * V, (eres, evisited)
 assert lut.build_luts.launches == 0
+assert exhaustive_adc.adc_scan_all.launches == 0
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pandas" or k == "columbiaimagesearch_tpu"
        or k.startswith("columbiaimagesearch_tpu.")]

@@ -245,3 +245,48 @@ def test_probe_policy_matches_jax(Vp):
                          (100_000, 10**6, 0.5), (50, 0, 1.0)]:
         assert (probe.rung_floor(ladder, quota, nb, Vp, y)
                 == jq.rung_floor(ladder, quota, nb, Vp, y))
+
+
+def test_add_codes_from_dict_matches_jax(corpus):
+    """Ids are the dict's keys in order, codes its values
+    (searcher.py:195-198); a repeated (cell, id) is dropped by both."""
+    from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
+
+    jm, tm, coarse, fine, ids, _, queries = corpus
+    js, ts = LOPQSearcherTPU(jm), LOPQSearcherTorch(tm)
+    first = {i: (tuple(c), tuple(f))
+             for i, c, f in zip(ids[:3000], coarse[:3000], fine[:3000])}
+    second = {i: (tuple(c), tuple(f))
+              for i, c, f in zip(ids[2500:], coarse[2500:], fine[2500:])}
+    for s in (js, ts):
+        s.add_codes_from_dict(first)
+        s.add_codes_from_dict(second)
+    assert ts.get_nb_indexed() == js.get_nb_indexed() == N
+    want = js.search_batch(queries, quota=300, limit=20, with_dists=True)
+    got = ts.search_batch(queries, quota=300, limit=20, with_dists=True)
+    for w, g in zip(want, got):
+        _assert_results_match(w, g)
+
+
+def test_has_rerank_feats_matches_jax(corpus):
+    """False while empty, True when every indexed row has a stored
+    feature, False for good after a featureless add (searcher.py:507-512)."""
+    from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
+
+    jm, tm, coarse, fine, ids, feats, _ = corpus
+    js, ts = LOPQSearcherTPU(jm), LOPQSearcherTorch(tm)
+    flags = []
+    for step in range(4):
+        for s in (js, ts):
+            if step == 1:
+                s.add_codes((coarse[:2000], fine[:2000]), ids[:2000],
+                            feats=feats[:2000])
+            elif step == 2:
+                s.add_codes((coarse[2000:3000], fine[2000:3000]),
+                            ids[2000:3000])
+            elif step == 3:
+                s.add_codes((coarse[3000:], fine[3000:]), ids[3000:],
+                            feats=feats[3000:])
+        flags.append((js.has_rerank_feats, ts.has_rerank_feats))
+    assert flags == [(False, False), (True, True), (False, False),
+                     (False, False)]
