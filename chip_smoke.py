@@ -12,7 +12,8 @@ D=128). Phases:
 1. build: compiles ``csrc/lut_build.cu`` and ``csrc/adc_scan.cu`` with
    nvcc for sm_90a, one nvcc each, started together;
 2. kernel vs plain: the LUT kernel against its plain PyTorch version at
-   the headline shapes (NQ 1 and 100), the exhaustive path's all-V shape
+   the headline shapes (NQ 1 and 100), a full serving wave's (NQ=32,
+   B=64), the exhaustive path's all-V shape
    and small odd shapes; the scan kernel against its plain version at the
    documented profile configuration (scripts/profile_exhaustive.py: V=64,
    1,048,576 random codes, NQ 8 and 64) and a small odd shape with
@@ -39,7 +40,25 @@ D=128). Phases:
    ``search_batch`` at nq 8 and 64, k=100, with the LUT and scan kernels'
    launch counts read around it), a torch.profiler trace of one launch
    at each nq, and ``ExhaustiveADCSearcher`` on a 100,000-row subset.
-   The headline state is freed first.
+   The headline state is freed first;
+9. fc7: DeepSentibank on the card — the golden fc7 of
+   ``tests/data/grace_hopper.jpg`` (deterministic Caffe blobs, the
+   generator copied from tests/test_sentibank_weights.py), the card's fc7
+   against the plain CPU forward on the same weights and pixels, and the
+   forward's time per wave at n = 1, 8, 32 in float32 and bfloat16;
+10. serving: the release configuration (conf/conf_search_production.json:
+   ``lopq_pca`` 4096 -> 256, V=4096, M=8, rerank on with the device store,
+   coalescing 4 ms / 32). The model (the headline's tables plus a seeded
+   orthonormal ``pca_P``) goes into the port's storer, the facade comes
+   from ``common.factory.build_searcher``, 10,485,760 index-space rows go
+   in through ``add_codes(..., feats=...)``, and the fc7 of seeded images
+   and of grace_hopper.jpg, extracted by ``GenericExtractor``, arrive
+   through a KVIndexer update and ``load_codes``. ``make_server`` then
+   answers ``byB64`` requests from 1 and from 32 concurrent clients and one
+   ``byPATH`` request: every answer has no error and the query image
+   first; one coalesced wave's ids equal ``search_batch`` on the same fc7
+   normalized on the host; ``lut_build`` must launch. A torch.profiler
+   trace of one 32-request wave gives device busy time and idle share.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Run from the root of a checkout:
@@ -49,6 +68,7 @@ exits non-zero before it. Run from the root of a checkout:
 Imports nothing of JAX.
 """
 
+import base64
 import json
 import os
 import subprocess
@@ -71,6 +91,21 @@ FACE = dict(rows=8_388_608, train=262_144, V=256, M=8, S=256, D=128, k=100,
             nqs=(8, 64), subset=100_000, seed=0)
 #: the release model's PCA widths (conf/conf_search_production.json)
 PCA = dict(raw_dim=4096, rows=262_144, wave=100, seed=0)
+#: the serving phase: the release configuration over the headline's
+#: 10,485,760 index rows (the index-space rows go in through add_codes: 10.5M
+#: base64 4096-d features do not go through sqlite), plus ``images`` seeded
+#: JPEGs and grace_hopper.jpg through a KVIndexer update
+SERVING = dict(conf="conf/conf_search_production.json", rows=10_485_760,
+               train=262_144, images=40, single=16, clients=32, rounds=3,
+               seed=0, overrides={})
+#: DeepSentibank forward timing: wave sizes, and the golden fc7 tolerance
+#: (tests/test_sentibank_weights.py:121); card vs CPU forward tolerance
+#: (tests/test_sentibank.py:106)
+FC7_WAVES = (1, 8, 32)
+GOLDEN_RTOL, GOLDEN_ATOL = 2e-2, 2e-4
+FC7_RTOL, FC7_ATOL = 2e-3, 2e-3
+#: coalesced wave vs search_batch on host-normalized rows: distances
+SERVING_DIST_ATOL = 1e-4
 
 KERNELS = ("lut_build", "adc_scan")
 
@@ -226,6 +261,7 @@ def phase_kernel_check(dev, card, seed):
     head = None
     cases = [("headline NQ=1", 1, 4096, 128, 4, 256, 64),
              ("headline NQ=100", 100, 4096, 128, 4, 256, 64),
+             ("serving wave NQ=32", 32, 4096, 128, 4, 256, 64),
              ("exhaustive all-V NQ=64", 64, 256, 64, 4, 256, 256),
              ("small odd", 3, 37, 32, 4, 32, 8),
              ("ragged tile", 100, 37, 32, 4, 32, 12)]
@@ -501,6 +537,28 @@ def trace(fn, name):
            f"{getattr(a, key) / 1e3:.3f} ms x{a.count}"
            for a in sorted(avgs, key=lambda a: -getattr(a, key))[:10]]
     return wall_ms, busy_us / 1e3, len(spans), top
+
+
+def host_profile(fn, sync, top=8):
+    """cProfile of one call of ``fn`` (ended by ``sync``): the wall time
+    and the ``top`` functions by own time, as log lines."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    sync()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = pstats.Stats(prof).stats
+    rows = sorted(st.items(), key=lambda kv: -kv[1][2])[:top]
+    lines = [f"cProfile wall {wall:.2f} ms; by own time:"]
+    for (path, line, name), (_cc, nc, tt, ct, _) in rows:
+        lines.append(f"  {tt * 1e3:8.2f} ms own {ct * 1e3:8.2f} ms cum "
+                     f"x{nc} {os.path.basename(path)}:{line}({name})")
+    return lines
 
 
 def phase_profile(dev, cfg, state, card):
@@ -851,6 +909,455 @@ def phase_exhaustive(dev, card):
                 max_abs=max_abs, ms=k_ms, plain_ms=p_ms)
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HOPPER = os.path.join(ROOT, "tests", "data", "grace_hopper.jpg")
+
+
+def deterministic_caffe_blobs(seed=0):
+    """Caffe-layout blobs with trained-net-like scales; a copy of
+    tests/test_sentibank_weights.py:54-75 (the golden fc7's weights)."""
+    r = np.random.RandomState(seed)
+
+    def conv(out_c, in_c, k):
+        return (0.01 * r.randn(out_c, in_c, k, k).astype(np.float32),
+                0.1 * np.ones(out_c, np.float32))
+
+    def fc(out_c, in_c):
+        return (0.005 * r.randn(out_c, in_c).astype(np.float32),
+                0.1 * np.ones(out_c, np.float32))
+
+    return {
+        "conv1": conv(96, 3, 11), "conv2": conv(256, 48, 5),
+        "conv3": conv(384, 256, 3), "conv4": conv(384, 192, 3),
+        "conv5": conv(256, 192, 3),
+        "fc6": fc(4096, 9216), "fc7": fc(4096, 4096),
+        "fc8-t": fc(2089, 4096),
+    }
+
+
+def serving_images(seed, n):
+    """grace_hopper.jpg and ``n`` seeded JPEGs (block patterns plus noise,
+    sizes 160-480), as encoded bytes."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    with open(HOPPER, "rb") as f:
+        out = [f.read()]
+    for _ in range(n):
+        h, w = rng.randint(160, 481, 2)
+        img = rng.randint(0, 40, (h, w, 3)).astype(np.int32)
+        for _ in range(4):
+            y, x = rng.randint(0, h - 32), rng.randint(0, w - 32)
+            img[y:y + rng.randint(16, h - y), x:x + rng.randint(16, w - x),
+                rng.randint(3)] += rng.randint(60, 200)
+        b = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            b, format="JPEG", quality=90)
+        out.append(b.getvalue())
+    return out
+
+
+def phase_fc7(dev, card):
+    """DeepSentibank on the card: the golden fc7, card vs CPU forward, and
+    the forward's ms per wave (CUDA events) at FC7_WAVES in float32 and
+    bfloat16."""
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models.preprocess import (
+        default_mean_image,
+        preprocess_batch,
+    )
+    from columbiaimagesearch_tpu_torch.models.sentibank import (
+        DeepSentibank,
+        SentibankFeaturizer,
+        init_params,
+        load_caffe_weights,
+    )
+
+    img = np.asarray(Image.open(HOPPER).convert("RGB"))
+    x = preprocess_batch([img, img[:, ::-1]], default_mean_image(),
+                         device=dev)
+    net = DeepSentibank.from_state_dict(
+        load_caffe_weights(deterministic_caffe_blobs()), dev)
+    with torch.inference_mode():
+        got = net.features(x).cpu().numpy()
+    with np.load(os.path.join(ROOT, "tests", "data", "golden_fc7.npz")) as z:
+        want = z["fc7"]
+    golden_err = float(np.abs(got - want).max())
+    log(f"fc7: golden grace_hopper.jpg fc7 on {dev}: max_abs_err="
+        f"{golden_err:.3e} (rtol {GOLDEN_RTOL}, atol {GOLDEN_ATOL}) [{card}]")
+    np.testing.assert_allclose(got, want, rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL)
+    del net
+
+    sd = init_params(seed=0)
+    card_f = SentibankFeaturizer(params=sd, device=dev)
+    cpu_f = SentibankFeaturizer(params=sd, device="cpu")
+    pix, status = card_f.decode_wave(serving_images(1, 7))
+    assert not any(status)
+    got = card_f.featurize_pixel_wave(pix)[0].cpu().numpy()
+    want = cpu_f.featurize_pixel_wave(pix)[0].numpy()
+    err = float(np.abs(got - want).max())
+    log(f"fc7: {len(pix)} images, the card's fc7 vs the CPU forward on the "
+        f"same weights: max_abs_err={err:.3e} max |fc7|={np.abs(want).max():.3e}"
+        f" (rtol {FC7_RTOL}, atol {FC7_ATOL}); TF32 matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+        f"{torch.backends.cudnn.allow_tf32}")
+    np.testing.assert_allclose(got, want, rtol=FC7_RTOL, atol=FC7_ATOL)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    del cpu_f
+    out = {}
+    rng = np.random.RandomState(2)
+    for dtype in ("float32", "bfloat16"):
+        f = (card_f if dtype == "float32" else SentibankFeaturizer(
+            params=sd, device=dev, compute_dtype="bfloat16"))
+        for n in FC7_WAVES:
+            stack = rng.randint(0, 255, (n, 256, 256, 3), dtype=np.uint8)
+            ms = float(np.median(time_ms(
+                lambda: f.featurize_pixel_wave(stack), 10, warmup=2)))
+            out[(dtype, n)] = ms
+            log(f"fc7: forward {dtype} wave n={n} (uint8 upload, "
+                f"preprocess, conv stack, fc6, fc7): {ms:.4f} ms/wave, "
+                f"{ms / n:.4f} ms/image (CUDA events, p50 of 10) [{card}]")
+    return out
+
+
+def _form(data):
+    """A request's form body, encoded once before any timing starts (the
+    urlencoding of a base64 image is slow Python that would otherwise run
+    in the clients' timed region and contend with the server for the
+    GIL)."""
+    import urllib.parse
+
+    return urllib.parse.urlencode({"data": data}).encode()
+
+
+def _post(port, mode, body):
+    """One POST of a :func:`_form` body to the search API; returns
+    (latency ms, json reply)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/cuimgsearch/{mode}",
+        data=body, method="POST",
+        headers={"Content-Type": "application/x-www-form-urlencoded"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        reply = json.loads(r.read())
+    return (time.perf_counter() - t0) * 1e3, reply
+
+
+def _check_reply(reply, sha1, what):
+    if "error" in reply or "Errors" in reply:
+        raise AssertionError(f"{what}: error in the response: {reply}")
+    entry = reply["AllSimilarImages"][0]
+    ids = entry["SimilarImages"]["ImageSha1s"]
+    if entry["QuerySha1"] != sha1 or not ids or ids[0] != sha1:
+        raise AssertionError(f"{what}: query {sha1} came back first as "
+                             f"{ids[:1]}")
+
+
+def phase_serving(dev, card, cfg=None):
+    """The release configuration served over HTTP (see the module
+    docstring, phase 10). Returns the launch counts and numbers."""
+    import shutil
+    import threading
+
+    from columbiaimagesearch_tpu_torch.api.app import make_server
+    from columbiaimagesearch_tpu_torch.common.factory import (
+        build_indexer,
+        build_searcher,
+        build_storer,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        GenericExtractor,
+        build_extr_str,
+    )
+    from columbiaimagesearch_tpu_torch.imgio.imgio import (
+        get_buffer_from_B64,
+        get_SHA1_from_data,
+    )
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        adc_scan_all,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+    from columbiaimagesearch_tpu_torch.models.sentibank import (
+        WEIGHTS_ENV,
+        SentibankFeaturizer,
+        init_params,
+        save_weights_npz,
+    )
+
+    cfg = dict(SERVING, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = os.path.join(ROOT, "build", "serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(ROOT, cfg["conf"])) as f:
+        conf = json.load(f)
+    conf.update(cfg["overrides"])
+    conf["KVI_db_path"] = os.path.join(work, "cuimgsearch.db")
+    conf["ST_base_path"] = os.path.join(work, "storer")
+    V = int(conf["SEARCHLOPQ_lopq_V"])
+    M = int(conf["SEARCHLOPQ_lopq_M"])
+    S = int(conf["SEARCHLOPQ_lopq_subq"])
+    D = int(conf["SEARCHLOPQ_lopq_pcadims"])
+    rerank_nb = int(conf["SEARCHLOPQ_rerank_nb"])
+    t_phase = time.perf_counter()
+
+    # Weights through the conventional path, as a deployment drops them.
+    weights = os.path.join(work, "sentibank.npz")
+    sd = init_params(seed=cfg["seed"])
+    save_weights_npz(sd, weights)
+    old_env = os.environ.get(WEIGHTS_ENV)
+    os.environ[WEIGHTS_ENV] = weights
+    featurizer = SentibankFeaturizer(params=sd, device=dev)
+    bufs = serving_images(cfg["seed"] + 3, cfg["images"])
+    sha1s = [get_SHA1_from_data(b) for b in bufs]
+    feats, status = featurizer.featurize_buffers(bufs)
+    assert not any(status) and len(set(sha1s)) == len(bufs)
+    unit = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+
+    # The model: the headline's tables plus a seeded orthonormal PCA whose
+    # mean is the images' (PCA centres its data).
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"])
+    comp = torch.randn(256, D, generator=g, device=dev)
+    comp /= comp.norm(dim=1, keepdim=True)
+    base = make_model(mixture(cfg["train"], comp, g), V, M, S, g)
+    P = torch.linalg.qr(torch.randn(4096, D, generator=g, device=dev))[0]
+    model = LOPQModelPCA(base.Cs, base.Rs, base.mus, base.subs, P,
+                         torch.from_numpy(unit.mean(0)), device=dev)
+    extr = build_extr_str("sentibank", "full", "image")
+    key = f"{extr}_lopq_pca-pca{D}-subq{S}-V{V}-M{M}"
+    t0 = time.perf_counter()
+    build_storer(conf).save(key, model)
+    save_s = time.perf_counter() - t0
+    del base, model
+
+    t0 = time.perf_counter()
+    facade = build_searcher(conf)
+    sync()
+    log(f"serving: {cfg['conf']} -> build_searcher: model {key} from the "
+        f"storer (saved in {save_s:.2f}s), facade in "
+        f"{time.perf_counter() - t0:.2f}s, coalescing "
+        f"{conf['SEARCHLOPQ_coalesce_window_ms']} ms / "
+        f"{conf['SEARCHLOPQ_coalesce_max_batch']}")
+    if (facade.build_model_str() != key
+            or not isinstance(facade.model, LOPQModelPCA)
+            or not isinstance(facade.searcher, LOPQSearcherTorch)
+            or facade.request_batcher is None
+            or facade.model.device != dev):
+        raise AssertionError("serving: the facade did not load the stored "
+                             "model onto the card")
+    s = facade.searcher
+    try:
+        t0 = time.perf_counter()
+        rows = mixture(cfg["rows"], comp, g)
+        coarse, fine = lopq_encode(facade.model.Cs, facade.model.Rs,
+                                   facade.model.mus, facade.model.subs, rows,
+                                   chunk=8192)
+        s.add_codes((coarse.cpu().numpy(), fine.to(torch.uint8).cpu().numpy()),
+                    feats=rows)
+        nb = s.get_nb_indexed()
+        sync()
+        del rows, coarse, fine
+        log(f"serving: {nb} index-space rows (codes + float32 rerank store) "
+            f"through add_codes in {time.perf_counter() - t0:.1f}s")
+
+        # The refresh route: extracted fc7 -> KVIndexer update -> load_codes.
+        t0 = time.perf_counter()
+        extractor = GenericExtractor("full", "sentibank", "image",
+                                     featurizer=featurizer)
+        kv = build_indexer(conf)
+        cols = extractor.process_batch(bufs)
+        rows_kv = {}
+        for sha1, c in zip(sha1s, cols):
+            rows_kv[sha1] = dict(c, **{kv.get_col_imgurl(): f"img/{sha1}"})
+        kv.push_dict_rows(rows_kv, kv.table_sha1infos_name)
+        uid, _ = kv.get_next_update_id(extr_type=extr)
+        kv.push_dict_rows({uid: {kv.get_col_listsha1s(): ",".join(sha1s)}},
+                          kv.table_updateinfos_name)
+        added = facade.load_codes()
+        nb2 = facade.get_nb_indexed()
+        log(f"serving: GenericExtractor -> KVIndexer update -> load_codes "
+            f"added {added} rows in {time.perf_counter() - t0:.2f}s; "
+            f"nb_indexed={nb2}, has_rerank_feats={s.has_rerank_feats}")
+        if added != len(bufs) or nb2 != nb + len(bufs) or not s.has_rerank_feats:
+            raise AssertionError("serving: the refresh did not index the "
+                                 "images with their rerank features")
+        b64 = [base64.b64encode(b).decode() for b in bufs]
+        forms = [_form(x) for x in b64]
+
+        # Record the waves the coalescer hands the raw-feature path.
+        waves = []
+        live = s.search_device_feats
+
+        def recording(X, **kw):
+            out = live(X, **kw)
+            waves.append((X[:kw.get("n_valid") or X.shape[0]].cpu().numpy(),
+                          kw, out))
+            return out
+        s.search_device_feats = recording
+
+        server = make_server(facade, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        build_luts.launches = 0                     # counts this path only
+        adc_scan_all.launches = 0
+        try:
+            first_ms, reply = _post(port, "byB64", forms[1])
+            _check_reply(reply, sha1s[1], "first request")
+            t0 = time.perf_counter()
+            warmed = facade.prewarm_serving(
+                int(conf["SEARCHLOPQ_coalesce_max_batch"]))
+            sync()
+            prewarm_s = time.perf_counter() - t0
+            del waves[:]           # the parity check takes a live wave
+            single = []
+            for i in range(cfg["single"]):
+                j = i % len(bufs)
+                ms, reply = _post(port, "byB64", forms[j])
+                _check_reply(reply, sha1s[j], f"1-client request {i}")
+                single.append(ms)
+            rounds, server_ms = [], []
+            n_c = cfg["clients"]
+            for r in range(cfg["rounds"]):
+                res, srv, errs = [None] * n_c, [None] * n_c, []
+                gate = threading.Event()
+
+                def client(i, r=r):
+                    gate.wait()
+                    j = (r * n_c + i) % len(bufs)
+                    try:
+                        ms, reply = _post(port, "byB64", forms[j])
+                        _check_reply(reply, sha1s[j], f"client {i}")
+                        res[i], srv[i] = ms, reply["Timing"] * 1e3
+                    except Exception as inst:  # noqa: BLE001 — reported
+                        errs.append(inst)
+                ts = [threading.Thread(target=client, args=(i,))
+                      for i in range(n_c)]
+                for t in ts:
+                    t.start()
+                gate.set()
+                for t in ts:
+                    t.join(timeout=300)
+                if errs or any(t.is_alive() for t in ts):
+                    raise AssertionError(f"serving: {n_c}-client round {r}: "
+                                         f"{errs[:3]}")
+                rounds.append(res)
+                server_ms.extend(srv)
+            path_ms, reply = _post(port, "byPATH", _form(HOPPER))
+            _check_reply(reply, sha1s[0], "byPATH grace_hopper.jpg")
+            sync()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            s.search_device_feats = live
+        launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches)
+        sizes = list(facade.request_batcher.batch_sizes)
+        conc = [ms for rr in rounds for ms in rr]
+        log(f"serving: first request (no prewarm, 1 client) {first_ms:.2f} "
+            f"ms; prewarm_serving({conf['SEARCHLOPQ_coalesce_max_batch']}) "
+            f"buckets {warmed} in {prewarm_s:.2f}s; after it the first "
+            f"1-client request {single[0]:.2f} ms and the first {n_c}-client "
+            f"round max {max(rounds[0]):.2f} ms [{card}]")
+        log(f"serving: HTTP byB64 latency, 1 client: p50 "
+            f"{np.percentile(single, 50):.2f} ms p99 "
+            f"{np.percentile(single, 99):.2f} ms ({len(single)} requests); "
+            f"{n_c} clients: p50 {np.percentile(conc, 50):.2f} ms p99 "
+            f"{np.percentile(conc, 99):.2f} ms ({len(conc)} requests in "
+            f"{cfg['rounds']} rounds), of which the server's own Timing "
+            f"(handler decode, coalescer wait, wave, assembly) p50 "
+            f"{np.percentile(server_ms, 50):.2f} ms; byPATH {path_ms:.2f} ms "
+            f"[{card}]")
+        log(f"serving: coalesced wave sizes {sizes}; probe_stats waves="
+            f"{s.probe_stats['waves']} escalated="
+            f"{s.probe_stats['escalated_queries']} brute_waves="
+            f"{s.probe_stats.get('brute_waves', 0)} wave_log="
+            f"{s.probe_stats.get('wave_log', [])[-6:]}")
+        log(f"serving: launches during the phase: lut_build "
+            f"{launches['lut']}, adc_scan {launches['adc']}")
+        if launches["lut"] <= 0:
+            raise AssertionError("serving: lut_build never launched")
+        if max(sizes) <= 1:
+            raise AssertionError("serving: no wave coalesced two requests")
+
+        # Parity: the largest coalesced wave against search_batch on the
+        # same fc7 rows normalized on the host.
+        X, kw, got = max(waves, key=lambda w: len(w[0]))
+        Xn = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-30)
+        want = s.search_batch(Xn, quota=kw["quota"], limit=kw["limit"],
+                              with_dists=True, with_codes=False,
+                              rerank_nb=kw["rerank_nb"])
+        worst = 0.0
+        for (rg, _), (rw, _) in zip(got, want):
+            if [r.id for r in rg] != [r.id for r in rw]:
+                raise AssertionError("serving: coalesced wave ids differ "
+                                     "from search_batch")
+            worst = max(worst, float(np.abs(
+                np.array([r.dist for r in rg])
+                - np.array([r.dist for r in rw])).max()))
+        if worst > SERVING_DIST_ATOL:
+            raise AssertionError(f"serving: distances differ by {worst}")
+        log(f"serving: a coalesced wave of {len(X)} equals search_batch on "
+            f"the host-normalized fc7 rows ({kw['limit']} ids each, "
+            f"rerank_nb={kw['rerank_nb']}): max_abs_dist_err={worst:.3e} "
+            f"(atol {SERVING_DIST_ATOL})")
+
+        def wave_reqs():
+            return [facade._prepare_request(
+                [b64[j % len(bufs)]], get_buffer_from_B64, {}, False)
+                for j in range(n_c)]
+
+        t0 = time.perf_counter()
+        reqs = wave_reqs()                        # decoded, as handlers do
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        replies = facade._serve_batch(reqs)
+        sync()
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        log(f"serving: {n_c} requests prepared one after another in one "
+            f"thread (base64, sha1, PIL decode and resize): {prep_ms:.2f} "
+            f"ms; their _serve_batch wave {wave_ms:.2f} ms [{card}]")
+        for j, reply in enumerate(replies):
+            _check_reply(reply, sha1s[j % len(bufs)], f"wave request {j}")
+        if dev.type == "cuda":
+            reqs = wave_reqs()
+            wall_ms, busy_ms, n_ops, top = trace(
+                lambda: facade._serve_batch(reqs), "serving_wave32")
+            log(f"profile: serving wave of {n_c} requests (_serve_batch: "
+                f"fc7 forward + fast path + result assembly, rerank_nb="
+                f"{rerank_nb}): device busy {busy_ms:.2f} ms, {n_ops} device "
+                f"ops; wall {wave_ms:.2f} ms unprofiled (idle share "
+                f"{1 - busy_ms / wave_ms:.3f}), {wall_ms:.2f} ms profiled "
+                f"[{card}]")
+            for line in top:
+                log(line)
+        reqs = wave_reqs()
+        for line in host_profile(lambda: facade._serve_batch(reqs), sync):
+            log(f"serving: wave of {n_c}, host {line}")
+        log(f"serving: checks passed: {len(single) + len(conc) + 2} HTTP "
+            f"answers without errors, each with its query image first; "
+            f"phase {time.perf_counter() - t_phase:.1f}s")
+        return dict(launches=launches, first_ms=first_ms, single=single,
+                    conc=conc, sizes=sizes)
+    finally:
+        facade.request_batcher.close()
+        shutil.rmtree(work, ignore_errors=True)     # the 262 MB weights file
+        if old_env is None:
+            os.environ.pop(WEIGHTS_ENV, None)
+        else:
+            os.environ[WEIGHTS_ENV] = old_env
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -879,15 +1386,20 @@ def main():
     phase_pca(dev, cfg, state, card)
     del state
     torch.cuda.empty_cache()
+    phase_fc7(dev, card)
+    serving = phase_serving(dev, card)
+    torch.cuda.empty_cache()
     ex = phase_exhaustive(dev, card)
     log(f"launches: lut_build {launches} on the probed path + "
+        f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path; adc_scan "
         f"{ex['adc_launches']} on the exhaustive path")
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
-        "launches": launches + ex["lut_launches"], "max_abs_err": worst,
+        "launches": launches + serving["launches"]["lut"]
+        + ex["lut_launches"], "max_abs_err": worst,
         "ms": k_ms, "plain_ms": p_ms}, {
         "name": "adc_scan", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/adc_scan.cu",

@@ -5,7 +5,9 @@ query with exact rerank, the probe ladder and the wave-driving searcher)
 and the exhaustive exact-ADC search in PyTorch, with both of the JAX
 package's TPU kernels hand-written in CUDA C++ for Hopper: the ADC
 lookup tables (``csrc/lut_build.cu``) and the exhaustive ADC scan
-(``csrc/adc_scan.cu``). It imports ``torch`` and numpy only, never
+(``csrc/adc_scan.cu``). It also serves: image -> DeepSentibank fc7, the
+fused raw-feature query, the ``SearcherLOPQ`` facade and the HTTP API.
+It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
 
@@ -25,6 +27,10 @@ Layout (JAX counterpart in brackets):
 - ``index/exhaustive_adc.py`` [index/pallas_adc.py]: the scan kernel's
   wrapper and plain version, ``ExhaustiveADC``, ``ExhaustiveADCSearcher``.
 - ``kernels/build.py`` [native/build.py]: nvcc build + ctypes loading.
+- ``models/`` [models/layers.py, preprocess.py, sentibank.py]: the fc7
+  featurizer; ``native/`` [native/build.py, imgpipe.py]: the host image
+  decoder; ``imgio/``, ``extraction/``, ``store/``, ``common/``,
+  ``searcher/``, ``api/`` [the same names]: the serving stack.
 """
 
 from columbiaimagesearch_tpu_torch import device  # noqa: F401  (TF32 off)

@@ -6,8 +6,10 @@ package's ``precision="highest"``: TF32 would keep ~3 decimal digits and
 flip argmins. Both PyTorch switches are set here, once, when the package
 is imported.
 
-Nothing in the port reads a global default device: every function takes
-its ``device`` (or the device of the tensors it is given) explicitly.
+Every function takes its ``device`` (or the device of the tensors it is
+given) explicitly. :func:`default_device` is read only where no caller can
+pass one: a model unpickled from a storer, and the featurizer and models
+the serving facade builds from a configuration.
 """
 
 import torch
@@ -20,6 +22,13 @@ torch.backends.cudnn.allow_tf32 = False
 #: meaningful under a shared machine, so waves on the CPU are sized
 #: against this fixed budget instead.
 CPU_WORKSET_BYTES = 2e9
+
+
+def default_device():
+    """The first CUDA card when there is one, else the CPU."""
+    if torch.cuda.is_available():
+        return torch.device("cuda", 0)
+    return torch.device("cpu")
 
 
 def free_bytes(device):

@@ -8,7 +8,10 @@ encodes through :func:`index.encode.lopq_encode`. ``export_npz``/
 ``load_npz`` use the JAX package's npz layout (model.py:372-387), and
 :meth:`LOPQModel.from_numpy` takes a JAX ``LOPQModel``'s numpy tuples
 (``model.Cs, model.Rs, model.mus, model.subquantizers``), so both packages
-can run on the same weights.
+can run on the same weights. A pickled model (the facade's storer keeps
+one) holds the same npz fields as numpy arrays and is rebuilt on the
+unpickling process's default device (``device.default_device``), so a
+model saved on the CPU loads on the card and the reverse.
 
 :class:`LOPQModelPCA` adds the PCA front end of the release model
 (``lopq_pca``): ``pca_P [D_raw, D]``, ``pca_mu [D_raw]`` and ``renorm``.
@@ -22,6 +25,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.device import default_device
 from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
 from columbiaimagesearch_tpu_torch.utils.codes import code_dtype_for
 
@@ -80,13 +84,20 @@ class LOPQModel:
                     mus=self.mus.cpu().numpy(), subs=self.subs.cpu().numpy(),
                     V=self.V, M=self.M)
 
+    @classmethod
+    def _from_fields(cls, d, *, device):
+        return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], device=device)
+
     def export_npz(self, filename):
         np.savez_compressed(filename, **self._npz_fields())
 
     @classmethod
     def load_npz(cls, filename, *, device):
         with np.load(filename) as d:
-            return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], device=device)
+            return cls._from_fields(d, device=device)
+
+    def __reduce__(self):
+        return _unpickle_model, (type(self), self._npz_fields())
 
 
 class LOPQModelPCA(LOPQModel):
@@ -139,7 +150,10 @@ class LOPQModelPCA(LOPQModel):
                     pca_mu=self.pca_mu.cpu().numpy(), renorm=self.renorm)
 
     @classmethod
-    def load_npz(cls, filename, *, device):
-        with np.load(filename) as d:
-            return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], d["pca_P"],
-                       d["pca_mu"], bool(d["renorm"]), device=device)
+    def _from_fields(cls, d, *, device):
+        return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], d["pca_P"],
+                   d["pca_mu"], bool(d["renorm"]), device=device)
+
+
+def _unpickle_model(cls, fields):
+    return cls._from_fields(fields, device=default_device())

@@ -1,6 +1,6 @@
 """Probed LOPQ query in PyTorch, batched over queries (port of
 columbiaimagesearch_tpu/index/tpu_query.py:146-371, 519-618, 621-665,
-693-759, 971-1002, 1058-1071).
+693-779, 971-1071).
 
 The JAX ``lopq_query`` is a single-query program that the searcher vmaps;
 the port's functions take a wave ``X [NQ, D]`` and return per-query rows.
@@ -20,6 +20,11 @@ Per query:
 Ties: ``lax.top_k`` keeps the lower index first; every selection here is a
 stable ascending sort, which orders ties the same way. The grid's visit
 order decides ``n_cells``, ``total`` and ``grid_ok``.
+
+The serving fast path takes raw features: :func:`fused_feat_query` and
+:func:`fused_feat_brute` L2-normalize, PCA-project (and renormalize) a
+wave on the device, every norm guarded by ``max(norm, 1e-30)`` so the
+zero rows of a padded wave stay finite, then run the functions above.
 
 Not ported yet (they raise ``NotImplementedError``): the sort-free wide
 square path (B*B > 16384 without strips, tpu_query.py:372-518) and wide-V
@@ -312,6 +317,52 @@ def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
             torch.full((n,), int(n_occ), device=X.device),
             torch.ones(n, dtype=torch.bool, device=X.device)))
     return torch.cat(out)
+
+
+def _unit_rows(X):
+    return X / torch.linalg.vector_norm(X, dim=1, keepdim=True).clamp(
+        min=1e-30)
+
+
+def normalize_project(X, pca_P=None, pca_mu=None, renorm=False):
+    """Raw features -> index-space queries: L2-normalize each row, then
+    with a PCA model project (one fp32 matmul, TF32 off) and optionally
+    renormalize; every norm is guarded by 1e-30 (tpu_query.py:770-777,
+    :1033-1040). ``LOPQModelPCA.apply_PCA`` is the unguarded form."""
+    Xn = _unit_rows(X.to(torch.float32))
+    if pca_P is None:
+        return Xn
+    Xp = torch.matmul(Xn - pca_mu[None, :], pca_P)
+    return _unit_rows(Xp) if renorm else Xp
+
+
+def fused_feat_query(X, pca_P, pca_mu, Cs, Rs, mus, subs, codes, cell_start,
+                     order, quota, feats=None, *, V, B, Q, K, R=0, K_out=0,
+                     renorm=False, SB=0):
+    """Raw features -> packed results of one rung (tpu_query.py:1005-1055):
+    :func:`normalize_project`, then :func:`lopq_query_rerank` (``R > 0``,
+    over ``feats``) or :func:`lopq_query_orig`, then
+    :func:`pack_query_out`. ``pca_P`` None is a plain LOPQ model.
+
+    :returns: [NQ, 2*K+3] int32, or [NQ, 2*(K_out or R)+3] when R > 0
+    """
+    Xn = normalize_project(X, pca_P, pca_mu, renorm)
+    tables = (Cs, Rs, mus, subs, codes, cell_start, order)
+    if R > 0:
+        out = lopq_query_rerank(Xn, feats, *tables, quota, V=V, B=B, Q=Q,
+                                K=K, R=R, K_out=K_out, SB=SB)
+    else:
+        out = lopq_query_orig(Xn, *tables, quota, V=V, B=B, Q=Q, K=K, SB=SB)
+    return pack_query_out(*out)
+
+
+def fused_feat_brute(X, pca_P, pca_mu, feats, feats_sq, nb, n_occ, *,
+                     K_pre, K_out, QCH=16, renorm=False):
+    """Raw features -> exact brute search (tpu_query.py:762-779):
+    :func:`normalize_project`, then :func:`brute_query_batch`."""
+    return brute_query_batch(normalize_project(X, pca_P, pca_mu, renorm),
+                             feats, feats_sq, nb, n_occ, K_pre=K_pre,
+                             K_out=K_out, QCH=QCH)
 
 
 def pack_query_out(rows, dists, total, n_cells, grid_ok):

@@ -30,8 +30,17 @@ Differences from the JAX searcher:
   (``torch.cuda.OutOfMemoryError``) halves this searcher's cap and
   retries, down to single-query launches.
 
-``codestore_path``, ``search_device_feats``, ``prewarm_ladder``,
-``get_cell`` and wide-V mode (V >= 8192) are not ported yet (ROADMAP.md).
+The serving fast path (searcher.py:1176-1350) is ported:
+:meth:`LOPQSearcherTorch.search_device_feats` takes raw features straight
+from the featurizer (normalize and PCA on the device,
+``query.fused_feat_query``), and :meth:`LOPQSearcherTorch.prewarm_ladder`
+runs every rung once before traffic. Search entry points run under
+``torch.inference_mode`` (grad mode is per thread, and serving searches
+run in the coalescer's and the HTTP handlers' threads); the device buffers
+are built outside it, so later in-place appends stay legal.
+
+``codestore_path``, ``get_cell`` and wide-V mode (V >= 8192) are not
+ported yet (ROADMAP.md).
 """
 
 import threading
@@ -56,13 +65,15 @@ from columbiaimagesearch_tpu_torch.index.probe import (
 )
 from columbiaimagesearch_tpu_torch.index.query import (
     brute_query_batch,
+    fused_feat_brute,
+    fused_feat_query,
     lopq_query_orig,
     lopq_query_rerank,
     pack_query_out,
     unpack_query_out,
     uses_lut,
 )
-from columbiaimagesearch_tpu_torch.utils.chunking import round_up
+from columbiaimagesearch_tpu_torch.utils.chunking import round_up, wave_bucket
 from columbiaimagesearch_tpu_torch.utils.codes import (
     IncrementalDedup,
     code_dtype_for,
@@ -293,7 +304,10 @@ class LOPQSearcherTorch:
             self._n_host = n0 + k
         return feats_new
 
+    @torch.inference_mode(False)
     def _pack_locked(self):
+        # Outside inference mode even when a search triggers the pack: the
+        # buffers built here are appended to in place later.
         if not self._dirty:
             return
         V = self.model.V
@@ -414,15 +428,33 @@ class LOPQSearcherTorch:
                 return True
         return prefer_brute(ladder[start:], nq, nb, self.model.V)
 
-    def _run_brute(self, X, d, nb, R, K_emit):
-        """One exact brute wave: packed launch + stats."""
-        packed = brute_query_batch(
-            X, d["feats"], d["feats_sq"], nb, d["n_occ"], K_pre=R,
-            K_out=K_emit).cpu().numpy()
-        with self._mutlock:
-            self.probe_stats["waves"] += 1
-            self.probe_stats["brute_waves"] = (
-                self.probe_stats.get("brute_waves", 0) + 1)
+    def _pca_args(self):
+        """(pca_P, pca_mu, renorm) of the fused raw-feature path."""
+        m = self.model
+        if isinstance(m, LOPQModelPCA):
+            return m.pca_P, m.pca_mu, m.renorm
+        return None, None, False
+
+    def _run_brute(self, X, d, nb, R, K_emit, raw=False, count_stats=True):
+        """One exact brute wave: packed launch + stats. ``X``: index-space
+        queries, or raw features when ``raw`` (normalize and PCA on the
+        device, the serving fast path). ``count_stats=False`` (prewarm)
+        keeps warm-up launches out of the probe stats."""
+        if raw:
+            pca_P, pca_mu, renorm = self._pca_args()
+            packed = fused_feat_brute(
+                X, pca_P, pca_mu, d["feats"], d["feats_sq"], nb, d["n_occ"],
+                K_pre=R, K_out=K_emit, renorm=renorm)
+        else:
+            packed = brute_query_batch(
+                X, d["feats"], d["feats_sq"], nb, d["n_occ"], K_pre=R,
+                K_out=K_emit)
+        packed = packed.cpu().numpy()
+        if count_stats:
+            with self._mutlock:
+                self.probe_stats["waves"] += 1
+                self.probe_stats["brute_waves"] = (
+                    self.probe_stats.get("brute_waves", 0) + 1)
         return unpack_query_out(packed, K_emit)
 
     def _bytes_per_query(self, Q, rung, R):
@@ -537,6 +569,20 @@ class LOPQSearcherTorch:
             del self.probe_stats["wave_log"][:-64]
         return rows, dists, ncells
 
+    def _wave_results(self, waves, K, K_emit, with_dists, ids_arr,
+                      cells_arr, fine_arr, with_codes):
+        """Per-query (results, visited) pairs of an answered wave."""
+        rows_b, dists_b, ncells_b = waves
+        K_out = min(K, K_emit)
+        return [
+            (self._rows_to_results(rows_b[i][:K_out], dists_b[i][:K_out],
+                                   with_dists, ids_arr, cells_arr, fine_arr,
+                                   with_codes=with_codes),
+             int(ncells_b[i]))
+            for i in range(len(rows_b))
+        ]
+
+    @torch.inference_mode()
     def search_batch(self, X, quota=10, limit=None, with_dists=False,
                      with_codes=True, rerank_nb=None):
         """Answer a wave of queries. Returns a list of (results, visited)
@@ -565,6 +611,7 @@ class LOPQSearcherTorch:
         if self._use_brute(d, nq, quota, nb, R):
             rows_b, dists_b, _, ncells_b, _ = self._run_brute(
                 X, d, nb, R, K_emit)
+            waves = (rows_b, dists_b, ncells_b)
         else:
             def run_tier(idx, rung):
                 B, SB = rung_parts(rung)
@@ -582,18 +629,112 @@ class LOPQSearcherTorch:
                 packed = pack_query_out(*out).cpu().numpy()  # one copy
                 return unpack_query_out(packed, K_emit)
 
-            rows_b, dists_b, ncells_b = self._escalate(
+            waves = self._escalate(
                 self._chunk_waves(run_tier, self._wave_cap(Q, R)),
                 nq, quota, nb, K_emit)
-        K_out = min(K, K_emit)
-        return [
-            (self._rows_to_results(rows_b[i][:K_out], dists_b[i][:K_out],
-                                   with_dists, ids_arr, cells_arr, fine_arr,
-                                   with_codes=with_codes),
-             int(ncells_b[i]))
-            for i in range(nq)
-        ]
+        return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
+                                  cells_arr, fine_arr, with_codes)
 
+    def _fused_tier(self, X, d, quota, Q, K_stage, R, K_emit):
+        """``run_tier`` of the raw-feature path: one rung of
+        ``fused_feat_query`` over the rows ``idx`` of ``X``."""
+        pca_P, pca_mu, renorm = self._pca_args()
+        V = self.model.V
+
+        def run_tier(idx, rung):
+            B, SB = rung_parts(rung)
+            Xi = X if len(idx) == X.shape[0] else X[torch.from_numpy(
+                np.asarray(idx)).to(X.device)]
+            packed = fused_feat_query(
+                Xi, pca_P, pca_mu, d["Cs"], d["Rs"], d["mus"], d["subs"],
+                d["codes"], d["cell_start"], d["order"], quota, d["feats"],
+                V=V, B=B, Q=Q, K=K_stage, R=R, K_out=K_emit, renorm=renorm,
+                SB=SB).cpu().numpy()                      # one copy
+            return unpack_query_out(packed, K_emit)
+        return run_tier
+
+    @torch.inference_mode()
+    def search_device_feats(self, feats_dev, quota=10, limit=None,
+                            with_dists=True, rerank_nb=None, n_valid=None):
+        """Serving fast path (searcher.py:1176-1272): RAW features straight
+        from the featurizer forward (before normalization and PCA) ->
+        results, one device-to-host copy per probe tier. With ``rerank_nb``
+        and a resident feature store the exact rerank runs on the device
+        too. Results carry code=None. Returns [(results, visited)] per
+        query, like :meth:`search_batch`.
+
+        ``n_valid``: the wave may arrive padded (rows past ``n_valid`` are
+        padding). Only the first ``n_valid`` rows run, so pad rows never
+        enter the escalation bookkeeping (a zero row always falls short of
+        the quota and would drag every wave onto the wider rungs)."""
+        X = torch.as_tensor(feats_dev).to(self.device)
+        if X.ndim == 1:
+            X = X[None, :]
+        d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
+        nq = int(n_valid) if n_valid is not None else int(X.shape[0])
+        if nb == 0:
+            return [([], 0)] * nq
+        X = X[:nq]
+        if rerank_nb and d.get("feats") is None:
+            raise ValueError(
+                "rerank_nb requires a resident feature store "
+                "(add_codes(..., feats=...) for every add)")
+        K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
+                                                   rerank_nb)
+        if self._use_brute(d, nq, quota, nb, R):
+            rows_b, dists_b, _, ncells_b, _ = self._run_brute(
+                X, d, nb, R, K_emit, raw=True)
+            waves = (rows_b, dists_b, ncells_b)
+        else:
+            waves = self._escalate(
+                self._chunk_waves(self._fused_tier(X, d, quota, Q, K_stage,
+                                                   R, K_emit),
+                                  self._wave_cap(Q, R)),
+                nq, quota, nb, K_emit)
+        return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
+                                  cells_arr, fine_arr, with_codes=False)
+
+    @torch.inference_mode()
+    def prewarm_ladder(self, quota=10, limit=None, rerank_nb=None,
+                       waves=(1,)):
+        """Run every ladder rung of the raw-feature path once (plus the
+        brute plan when the store is resident) on zero queries, at each
+        wave bucket of ``waves`` (searcher.py:1274-1350). Nothing compiles
+        per shape here, but the first launch of each shape loads the LUT
+        kernel, grows the caching allocator and picks library algorithms;
+        this pays that before traffic. Results are discarded; the yield
+        EMA, the tier hint and the probe stats are left alone.
+
+        :returns: number of rung and brute launches driven"""
+        d, _ids, _cells, _fine, nb = self._snapshot()
+        if nb == 0:
+            return 0
+        if rerank_nb and d.get("feats") is None:
+            rerank_nb = None
+        _K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
+                                                    rerank_nb)
+        m = self.model
+        feat_dim = (m.pca_P.shape[0] if isinstance(m, LOPQModelPCA)
+                    else 2 * int(m.Cs.shape[2]))
+        n_progs = 0
+        for w in sorted({wave_bucket(max(1, int(b))) for b in waves}):
+            X = torch.zeros((w, feat_dim), dtype=torch.float32,
+                            device=self.device)
+            # Through _chunk_waves: the wave cap and the OOM backoff apply
+            # as they would under live traffic.
+            wrapped = self._chunk_waves(
+                self._fused_tier(X, d, quota, Q, K_stage, R, K_emit),
+                self._wave_cap(Q, R))
+            for rung in self._probe_ladder():
+                wrapped(np.arange(w), rung)
+                n_progs += 1
+            if R:
+                self._run_brute(X, d, nb, R, K_emit, raw=True,
+                                count_stats=False)
+                n_progs += 1
+        return n_progs
+
+    @torch.inference_mode()
     def search(self, x, quota=10, limit=None, with_dists=False,
                rerank_nb=None):
         """One query; same contract as the JAX searcher's ``search``:

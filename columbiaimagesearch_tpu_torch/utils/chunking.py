@@ -1,7 +1,8 @@
-"""Integer shape helpers (copy of columbiaimagesearch_tpu/utils/chunking.py:7-12).
+"""Integer shape helpers (copy of columbiaimagesearch_tpu/utils/chunking.py:7-23).
 
-``wave_bucket``/``pad_rows`` are not copied: they bounded jit recompiles,
-and PyTorch runs eagerly.
+``pad_rows`` is not copied: it bounded jit recompiles, and PyTorch runs
+eagerly. ``wave_bucket`` stays because ``prewarm_serving`` and
+``prewarm_ladder`` report and drive the serving wave sizes by bucket.
 """
 
 
@@ -11,3 +12,11 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
+
+
+def wave_bucket(n: int) -> int:
+    """Quantized serving-wave batch size: next power of two up to 128, then
+    multiples of 128 (chunking.py:15-23)."""
+    if n <= 128:
+        return 1 << max(0, int(n - 1).bit_length())
+    return round_up(n, 128)

@@ -1,6 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports every module of
-``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA
-and exhaustive), and never loads ``jax``, the JAX package or pandas."""
+``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
+exhaustive, the raw-feature fast path and one ``SearcherLOPQ`` facade
+search), and never loads ``jax``, ``flax``, the JAX package or pandas —
+nor PIL, which only the image routes import, lazily."""
 
 import os
 import subprocess
@@ -18,6 +20,16 @@ from columbiaimagesearch_tpu_torch.index import (csr, encode, exhaustive_adc,
                                                   lut, model, probe, query,
                                                   searcher)
 from columbiaimagesearch_tpu_torch.kernels import build
+from columbiaimagesearch_tpu_torch import (api, common, extraction, imgio,
+                                           models, native, searcher as fac,
+                                           store)
+from columbiaimagesearch_tpu_torch.api import app, microbatch, run_search_api
+from columbiaimagesearch_tpu_torch.common import factory
+from columbiaimagesearch_tpu_torch.extraction import extractor
+from columbiaimagesearch_tpu_torch.models import layers, preprocess, sentibank
+from columbiaimagesearch_tpu_torch.native import imgpipe
+from columbiaimagesearch_tpu_torch.searcher import (generic_searcher,
+                                                    searcher_lopq)
 
 rng = np.random.RandomState(0)
 V, F, S, Dh = 8, 2, 16, 8
@@ -45,10 +57,29 @@ ex.add_codes_from_dict({i: (tuple(c), tuple(f))
                         for i, (c, f) in enumerate(zip(coarse, fine))})
 eres, evisited = ex.search(X[7], quota=5, with_dists=True)
 assert len(eres) == 5 and evisited == V * V, (eres, evisited)
+fast = s.search_device_feats(torch.from_numpy(X[7:9]) * 3.0, quota=50,
+                             limit=5, rerank_nb=20)
+Xn = X[7:9] / np.linalg.norm(X[7:9], axis=1, keepdims=True)
+host = s.search_batch(Xn, quota=50, limit=5, with_dists=True,
+                      with_codes=False, rerank_nb=20)
+assert [[r.id for r in q] for q, _ in fast] == \
+    [[r.id for r in q] for q, _ in host], (fast, host)
+kv = store.KVIndexer(path=":memory:")
+facade = fac.SearcherLOPQ(model=m, model_type="lopq", V=V, M=2 * F,
+                          subquantizer_clusters=S, featurizer=object(),
+                          indexer=kv, storer=store.MemoryStorer(),
+                          reranking=True, rerank_nb=20,
+                          store_rerank_feats=True)
+Xu = X / np.linalg.norm(X, axis=1, keepdims=True)
+facade.searcher.add_codes(m.predict_batch(Xu),
+                          [f"s{i}" for i in range(500)], feats=Xu)
+out = facade.search_from_feats([("q", None)], [X[11]], {"max_returned": 3})
+assert out["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"][0] == "s11"
 assert lut.build_luts.launches == 0
 assert exhaustive_adc.adc_scan_all.launches == 0
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
-       or k == "pandas" or k == "columbiaimagesearch_tpu"
+       or k.split(".")[0] in ("flax", "pandas", "PIL")
+       or k == "columbiaimagesearch_tpu"
        or k.startswith("columbiaimagesearch_tpu.")]
 assert not bad, bad
 print("ok", visited)
