@@ -13,11 +13,17 @@ D=128). Phases:
    nvcc for sm_90a, one nvcc each, started together;
 2. kernel vs plain: the LUT kernel against its plain PyTorch version at
    the headline shapes (NQ 1 and 100), a full serving wave's (NQ=32,
-   B=64), the exhaustive path's all-V shape
-   and small odd shapes; the scan kernel against its plain version at the
-   documented profile configuration (scripts/profile_exhaustive.py: V=64,
-   1,048,576 random codes, NQ 8 and 64) and a small odd shape with
-   count-0 blocks;
+   B=64), the exhaustive path's all-V shape, every slot on one cluster,
+   all slots distinct, and small odd shapes; the scan kernel against its
+   plain version (bit-equal) at the documented profile configuration
+   (scripts/profile_exhaustive.py: V=64, 1,048,576 random codes, NQ 8
+   and 64) and small odd shapes with multi-block cells and count-0 blocks
+   at NQ 1, 3, 12, 64. Each check prints the kernel's device time per
+   call (for the LUT kernel, calls replayed from a CUDA graph, so that a
+   call shorter than its launch is timed too), its plain version's, its
+   bound (from this run's inputs: distinct
+   probed matrices counted with ``torch.unique``) and share, and for the
+   scan one ``embedding_bag`` on the same inputs (``library_ms``);
 3. main path: a seeded random model, the gaussian-mixture corpus encoded
    with ``lopq_encode`` and indexed by ``LOPQSearcherTorch`` with a float32
    rerank store on the card, request waves through ``search_batch`` with
@@ -38,8 +44,11 @@ D=128). Phases:
    .json, 128-d embeddings) with a seeded model, 8,388,608 rows through
    ``ExhaustiveADC`` (scan kernel vs plain at NQ=8 on that index, then
    ``search_batch`` at nq 8 and 64, k=100, with the LUT and scan kernels'
-   launch counts read around it), a torch.profiler trace of one launch
-   at each nq, and ``ExhaustiveADCSearcher`` on a 100,000-row subset.
+   launch counts read around it; the tiled tables of ``search_batch``
+   equal to ``tile_luts(build_query_luts)``, and 4 queries of each nq
+   held to a selection on the plain distances), a torch.profiler trace
+   of one launch at each nq, and ``ExhaustiveADCSearcher`` on a
+   100,000-row subset.
    The headline state is freed first;
 9. fc7: DeepSentibank on the card — the golden fc7 of
    ``tests/data/grace_hopper.jpg`` (deterministic Caffe blobs, the
@@ -69,6 +78,7 @@ Imports nothing of JAX.
 """
 
 import base64
+import itertools
 import json
 import os
 import subprocess
@@ -115,10 +125,18 @@ KERNELS = ("lut_build", "adc_scan")
 #: blocks.
 SCAN_CASES = [("profile NQ=8", 1 << 20, 64, 8, 256, 8, False),
               ("profile NQ=64", 1 << 20, 64, 8, 256, 64, False),
-              ("small odd NQ=3", 3000, 37, 4, 32, 3, True)]
+              ("small odd NQ=1", 3000, 37, 4, 32, 1, True),
+              ("small odd NQ=3", 3000, 37, 4, 32, 3, True),
+              ("small odd NQ=12", 3000, 37, 4, 32, 12, True),
+              ("small odd NQ=64", 3000, 37, 4, 32, 64, True)]
 
 #: kernel vs plain tolerance: fp32 both sides, sums in another order
 LUT_RTOL, LUT_ATOL = 1e-5, 1e-4
+
+#: the H100 SXM's published peaks at its full 700 W (NVIDIA's data sheet):
+#: HBM3 bytes/s and fp32 FLOP/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 
 def log(msg):
@@ -150,6 +168,57 @@ def time_ms(fn, iters, warmup=1):
     return times
 
 
+def kernel_ms(fn, iters, reps=3):
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls
+    made back to back, the median of ``reps`` such runs. The host enqueues
+    ahead of the device, so this is the device's time per call (the
+    kernel's, for a wrapper); ``time_ms`` adds the host's launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    return float(np.median(out))
+
+
+def graph_ms(fn, iters, reps=3):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed between CUDA events, the median of ``reps`` replays.
+    No host work sits between the calls, so a call shorter than its launch
+    is timed too. ``fn`` must launch on the current stream and not sync."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    del graph
+    return float(np.median(out))
+
+
 def host_ms(fn, iters, sync):
     """Per-call host-clock times (ms) of work that ends in a sync."""
     times = []
@@ -159,6 +228,79 @@ def host_ms(fn, iters, sync):
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def bound_of(nbytes, flops):
+    """(bound ms, which binds): the larger of the bytes over the card's
+    memory rate and the operations over its fp32 rate."""
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def lut_work(isel, V, Dh, F, S, Dsub):
+    """Bytes and FLOPs of one ``build_luts`` call on these ids: each
+    distinct probed (split, cluster) matrix, Cs and mus row read once
+    (counted with ``torch.unique`` on this ``isel``), the queries, the ids,
+    ``subs`` and the output; per valid slot a residual, a rotation and
+    F*S*Dsub (sub, square, add). Returns (bytes, flops, distinct)."""
+    NQ, _, B = isel.shape
+    s = torch.arange(2, device=isel.device).view(1, 2, 1)
+    valid = (isel >= 0) & (isel < V)
+    distinct = int(torch.unique((s * V + isel.long())[valid]).numel())
+    slots = int(valid.sum())
+    nbytes = (distinct * (Dh * Dh + 2 * Dh) * 4 + NQ * 2 * Dh * 4
+              + isel.numel() * 4 + 2 * F * S * Dsub * 4
+              + NQ * 2 * B * F * S * 4)
+    flops = slots * (2 * Dh * Dh + 2 * Dh + 3 * F * S * Dsub)
+    return nbytes, flops, distinct
+
+
+def scan_work(block_count, M, V, S, NQ):
+    """Bytes and FLOPs of one ``adc_scan_all``: the codes, the block
+    arrays, both tables and the [NQ, Npad] output once each; M - 1 adds
+    per valid row and query."""
+    NB = block_count.shape[0]
+    npad = NB * 128
+    valid = int(block_count.clamp(min=0).sum())
+    nbytes = (npad * M + 2 * NB * 4 + 2 * V * (M // 2) * S * NQ * 4
+              + NQ * npad * 4)
+    return nbytes, valid * NQ * (M - 1)
+
+
+def bound_text(ms, nbytes, flops):
+    b_ms, by = bound_of(nbytes, flops)
+    return (f"bound_ms={b_ms:.4f} (bound by {by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP) share={b_ms / ms:.3f}")
+
+
+def scan_library_inputs(codes, block_cell, block_count, lut0, lut1, V):
+    """The scan as one ``embedding_bag(mode="sum")``: the weight is both
+    tables flattened to [2*V*F*S, NQ] plus one +inf row, and each padded
+    row's bag holds its M table rows (padding rows: M times the +inf row).
+    Built outside any timed region; the port never calls this."""
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import BLK
+
+    M = codes.shape[1]
+    F, S, NQ = lut0.shape[1], lut0.shape[2], lut0.shape[3]
+    VFS = V * F * S
+    cell = block_cell.long().repeat_interleave(BLK)
+    valid = (torch.arange(BLK, device=codes.device)[None, :]
+             < block_count[:, None]).reshape(-1)
+    m = torch.arange(M, device=codes.device)
+    h, f = m // F, m % F
+    half = torch.where(h[None, :] == 0, (cell // V)[:, None],
+                       (cell % V)[:, None])
+    idx = h * VFS + half * (F * S) + f * S + codes.long()
+    idx[~valid] = 2 * VFS
+    weight = torch.cat([lut0.reshape(VFS, NQ), lut1.reshape(VFS, NQ),
+                        torch.full((1, NQ), float("inf"),
+                                   device=lut0.device)])
+    return idx, weight
+
+
+def scan_library(idx, weight):
+    return torch.nn.functional.embedding_bag(idx, weight, mode="sum")
 
 
 # ------------------------------------------------------------ synthetic data
@@ -236,56 +378,85 @@ def phase_build():
     return seconds
 
 
-def lut_inputs(dev, g, NQ, V, Dh, F, S, B):
+def lut_inputs(dev, g, NQ, V, Dh, F, S, B, pattern="random"):
+    """Seeded LUT inputs; ``pattern`` picks the probed ids: uniform
+    ``random``, every slot on ``one`` cluster, or all ``distinct``."""
     Dsub = Dh // F
     Cs = torch.randn(2, V, Dh, generator=g, device=dev)
     Rs = torch.randn(2, V, Dh, Dh, generator=g, device=dev) / Dh ** 0.5
     mus = 0.1 * torch.randn(2, V, Dh, generator=g, device=dev)
     subs = torch.randn(2, F, S, Dsub, generator=g, device=dev)
     x2 = torch.randn(NQ, 2, Dh, generator=g, device=dev)
-    isel = torch.randint(0, V, (NQ, 2, B), generator=g, device=dev,
-                         dtype=torch.int32)
+    if pattern == "one":
+        isel = torch.full((NQ, 2, B), 7, dtype=torch.int32, device=dev)
+    elif pattern == "distinct":
+        isel = torch.stack([torch.randperm(V, generator=g, device=dev)[
+            :NQ * B].reshape(NQ, B) for _ in range(2)], 1).to(torch.int32)
+    else:
+        isel = torch.randint(0, V, (NQ, 2, B), generator=g, device=dev,
+                             dtype=torch.int32)
     return x2, isel, Cs, Rs, mus, subs
 
 
+#: LUT kernel checks: (label, NQ, V, Dh, F, S, B, isel pattern)
+LUT_CASES = [("headline NQ=1", 1, 4096, 128, 4, 256, 64, "random"),
+             ("headline NQ=100", 100, 4096, 128, 4, 256, 64, "random"),
+             ("serving wave NQ=32", 32, 4096, 128, 4, 256, 64, "random"),
+             ("exhaustive all-V NQ=64", 64, 256, 64, 4, 256, 256, "all-V"),
+             ("one cluster NQ=8", 8, 4096, 128, 4, 256, 64, "one"),
+             ("all distinct NQ=8", 8, 4096, 128, 4, 256, 64, "distinct"),
+             ("small odd", 3, 37, 32, 4, 32, 8, "random"),
+             ("ragged tile", 100, 37, 32, 4, 32, 12, "random")]
+
+
 def phase_kernel_check(dev, card, seed):
-    """LUT kernel vs plain version at the main path's shapes."""
+    """LUT kernel vs plain version at the main path's shapes and the
+    grouping's edge cases, with each call's bound. Returns (worst max abs
+    error, {label: dict(ms, plain_ms, bound_ms, bound_by)})."""
     from columbiaimagesearch_tpu_torch.index.lut import (
         build_luts,
+        build_luts_all_clusters,
         build_luts_plain,
     )
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 1)
     worst = 0.0
-    head = None
-    cases = [("headline NQ=1", 1, 4096, 128, 4, 256, 64),
-             ("headline NQ=100", 100, 4096, 128, 4, 256, 64),
-             ("serving wave NQ=32", 32, 4096, 128, 4, 256, 64),
-             ("exhaustive all-V NQ=64", 64, 256, 64, 4, 256, 256),
-             ("small odd", 3, 37, 32, 4, 32, 8),
-             ("ragged tile", 100, 37, 32, 4, 32, 12)]
-    for label, NQ, V, Dh, F, S, B in cases:
-        args = lut_inputs(dev, g, NQ, V, Dh, F, S, B)
-        got = build_luts(*args)
+    out = {}
+    for label, NQ, V, Dh, F, S, B, pattern in LUT_CASES:
+        args = lut_inputs(dev, g, NQ, V, Dh, F, S, B, pattern)
+        if pattern == "all-V":   # the exhaustive path's ids and entry point
+            args = (args[0], torch.arange(V, dtype=torch.int32, device=dev)
+                    .expand(NQ, 2, V).contiguous()) + args[2:]
+
+            def fn(args=args):
+                return build_luts_all_clusters(args[0], *args[2:])
+        else:
+            def fn(args=args):
+                return build_luts(*args)
+        got = fn()
         torch.cuda.synchronize()
         want = build_luts_plain(*args)
         err = (got - want).abs()
         max_abs = float(err.max())
         max_rel = float((err / want.abs().clamp(min=1e-30)).max())
         ok = bool(torch.allclose(got, want, rtol=LUT_RTOL, atol=LUT_ATOL))
-        k_ms = float(np.median(time_ms(lambda: build_luts(*args), 20)))
-        p_ms = float(np.median(time_ms(lambda: build_luts_plain(*args), 5)))
+        k_ms = graph_ms(fn, 20)     # a call at NQ=1 is shorter than its launch
+        p_ms = kernel_ms(lambda: build_luts_plain(*args), 3, reps=1)
+        nbytes, flops, distinct = lut_work(args[1], V, Dh, F, S, Dh // F)
+        b_ms, by = bound_of(nbytes, flops)
         log(f"kernel check: lut_build {label} (V={V} Dh={Dh} F={F} S={S} "
-            f"B={B}): max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-            f"(rtol {LUT_RTOL}, atol {LUT_ATOL}) kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} [{card}]")
+            f"B={B}, {distinct} distinct probed matrices): max_abs_err="
+            f"{max_abs:.3e} max_rel_err={max_rel:.3e} (rtol {LUT_RTOL}, atol "
+            f"{LUT_ATOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"{bound_text(k_ms, nbytes, flops)} library_ms=none (no single "
+            f"PyTorch call builds the tables: a residual, a batched "
+            f"rotation and a distance table) [{card}]")
         if not ok:
             raise AssertionError(f"lut_build disagrees with plain ({label})")
         worst = max(worst, max_abs)
-        if label == "headline NQ=100":
-            head = (k_ms, p_ms)
-    return worst, head
+        out[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+    return worst, out
 
 
 def _check_results(res, limit, what):
@@ -648,73 +819,101 @@ def phase_numbers(dev, cfg, state, card):
     return out
 
 
-def _scan_compare(label, got, want, card, k_ms, p_ms):
-    """Scan kernel vs plain: identical +inf positions, the finite values
-    within LUT_RTOL/LUT_ATOL. Returns the max abs error."""
-    inf = torch.isinf(want)
-    if not torch.equal(torch.isinf(got), inf):
-        raise AssertionError(f"adc_scan {label}: +inf positions differ")
-    g, w = got[~inf], want[~inf]
-    max_abs = float((g - w).abs().max()) if w.numel() else 0.0
-    log(f"kernel check: adc_scan {label}: {int(inf.sum())} +inf of "
-        f"{want.numel()}, max_abs_err={max_abs:.3e} (rtol {LUT_RTOL}, atol "
-        f"{LUT_ATOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} [{card}]")
-    if not torch.allclose(g, w, rtol=LUT_RTOL, atol=LUT_ATOL):
-        raise AssertionError(f"adc_scan disagrees with plain ({label})")
-    return max_abs
-
-
-def _time_scan(args, V, plain_iters=3):
+def _scan_check(label, args, V, card, plain_iters=3):
+    """Scan kernel vs plain on ``args`` (codes, block_cell, block_count,
+    lut0, lut1): bit-equal with identical +inf positions (both add the M
+    entries in m order); the kernel's time (tiling of the tables
+    included), the plain version's, the bound, and one
+    ``embedding_bag`` on the same inputs (held equal to the plain output
+    within LUT_RTOL/LUT_ATOL). Returns a dict of the numbers."""
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         adc_scan_all,
         adc_scan_all_plain,
+        scan_items,
     )
 
-    k_ms = float(np.median(time_ms(lambda: adc_scan_all(*args, V=V), 10)))
-    p_ms = float(np.median(time_ms(
-        lambda: adc_scan_all_plain(*args, V=V), plain_iters)))
-    return k_ms, p_ms
+    items = scan_items(args[1])
+    got = adc_scan_all(*args, V=V, items=items)
+    torch.cuda.synchronize()
+    want = adc_scan_all_plain(*args, V=V)
+    inf = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), inf):
+        raise AssertionError(f"adc_scan {label}: +inf positions differ")
+    max_abs = (float((got[~inf] - want[~inf]).abs().max())
+               if (~inf).any() else 0.0)
+    if not torch.equal(got, want):
+        raise AssertionError(f"adc_scan {label}: not bit-equal to plain "
+                             f"(max_abs_err={max_abs:.3e})")
+    del got
+    idx, weight = scan_library_inputs(*args, V)
+    lib = scan_library(idx, weight).T
+    lib_inf = torch.isinf(lib)
+    lib_err = (float((lib[~lib_inf] - want[~lib_inf]).abs().max())
+               if (~lib_inf).any() else 0.0)
+    if not (torch.equal(lib_inf, inf) and torch.allclose(
+            lib[~inf], want[~inf], rtol=LUT_RTOL, atol=LUT_ATOL)):
+        raise AssertionError(f"embedding_bag disagrees with the plain scan "
+                             f"({label})")
+    del lib, want
+    k_ms = kernel_ms(lambda: adc_scan_all(*args, V=V, items=items), 10)
+    p_ms = kernel_ms(lambda: adc_scan_all_plain(*args, V=V), plain_iters,
+                     reps=1)
+    l_ms = kernel_ms(lambda: scan_library(idx, weight), 10)
+    del idx, weight
+    M, S, NQ = args[0].shape[1], args[3].shape[2], args[3].shape[3]
+    nbytes, flops = scan_work(args[2], M, V, S, NQ)
+    b_ms, by = bound_of(nbytes, flops)
+    log(f"kernel check: adc_scan {label}: {int(inf.sum())} +inf of "
+        f"{inf.numel()}, bit-equal to plain (max_abs_err={max_abs:.3e}) "
+        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"{bound_text(k_ms, nbytes, flops)} library_ms={l_ms:.4f} "
+        f"(embedding_bag sum, max_abs_err vs plain {lib_err:.3e}) [{card}]")
+    return dict(max_abs=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=l_ms)
+
+
+def scan_case_args(dev, rng, g, n, V, M, S, NQ, odd):
+    """A scan check's inputs: uniform random cells, or (``odd``) half the
+    rows in 5 cells (multi-block runs) with count-0 blocks inserted at the
+    front, the middle and the end."""
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        BLK,
+        build_padded_layout,
+    )
+
+    if odd:
+        cells = np.concatenate([rng.randint(0, 5, n // 2),
+                                rng.randint(0, V * V, n - n // 2)])
+    else:
+        cells = rng.randint(0, V, n) * V + rng.randint(0, V, n)
+    fine = rng.randint(0, S, (n, M)).astype(np.uint8)
+    codes, bc, bn, _ = build_padded_layout(cells, fine)
+    if odd:
+        at = [0, len(bc) // 2, len(bc)]
+        codes = np.insert(codes.reshape(-1, BLK, M), at, 1,
+                          axis=0).reshape(-1, M)
+        bc = np.insert(bc, at, [0, 5, V * V - 1]).astype(np.int32)
+        bn = np.insert(bn, at, 0).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (codes, bc, bn)] + [
+        10 * torch.rand(V, M // 2, S, NQ, generator=g, device=dev)
+        for _ in range(2)]
 
 
 def phase_scan_check(dev, card, seed):
     """Scan kernel vs plain version at each of SCAN_CASES."""
-    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
-        BLK,
-        adc_scan_all,
-        adc_scan_all_plain,
-        build_padded_layout,
-    )
-
     rng = np.random.RandomState(seed + 2)
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 2)
     worst = 0.0
+    out = {}
     for label, n, V, M, S, NQ, odd in SCAN_CASES:
-        if odd:        # half the rows in 5 cells: multi-block ragged runs
-            cells = np.concatenate([rng.randint(0, 5, n // 2),
-                                    rng.randint(0, V * V, n - n // 2)])
-        else:
-            cells = rng.randint(0, V, n) * V + rng.randint(0, V, n)
-        fine = rng.randint(0, S, (n, M)).astype(np.uint8)
-        codes, bc, bn, _ = build_padded_layout(cells, fine)
-        if odd:        # count-0 blocks at the front, middle and end
-            at = [0, len(bc) // 2, len(bc)]
-            codes = np.insert(codes.reshape(-1, BLK, M), at, 1,
-                              axis=0).reshape(-1, M)
-            bc = np.insert(bc, at, [0, 5, V * V - 1]).astype(np.int32)
-            bn = np.insert(bn, at, 0).astype(np.int32)
-        args = [torch.from_numpy(a).to(dev) for a in (codes, bc, bn)] + [
-            10 * torch.rand(V, M // 2, S, NQ, generator=g, device=dev)
-            for _ in range(2)]
-        got = adc_scan_all(*args, V=V)
-        torch.cuda.synchronize()
-        want = adc_scan_all_plain(*args, V=V)
-        k_ms, p_ms = _time_scan(args, V)
-        worst = max(worst, _scan_compare(
-            f"{label} (V={V} M={M} S={S} rows={n} padded={len(codes)})",
-            got, want, card, k_ms, p_ms))
-        del got, want, args
-    return worst
+        args = scan_case_args(dev, rng, g, n, V, M, S, NQ, odd)
+        r = _scan_check(f"{label} (V={V} M={M} S={S} rows={n} padded="
+                        f"{args[0].shape[0]})", args, V, card)
+        worst = max(worst, r["max_abs"])
+        out[label] = r
+        del args
+    return worst, out
 
 
 def phase_pca(dev, cfg, state, card):
@@ -773,35 +972,48 @@ def phase_pca(dev, cfg, state, card):
         f"indexed raw rows returned first")
 
 
+def face_index(dev):
+    """The face configuration's seeded model and index rows (FACE): the
+    gaussian mixture encoded by a model made from it. Returns (model,
+    coarse [n, 2] and fine [n, M] uint8 as numpy, the mixture's components,
+    the generator, to draw queries from the same mixture)."""
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+
+    cfg = FACE
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 7)
+    comp = torch.randn(256, cfg["D"], generator=g, device=dev)
+    comp /= comp.norm(dim=1, keepdim=True)
+    model = make_model(mixture(cfg["train"], comp, g), cfg["V"], cfg["M"],
+                       cfg["S"], g)
+    rows = mixture(cfg["rows"], comp, g)
+    coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                               rows, chunk=8192)
+    del rows
+    return (model, coarse.cpu().numpy(), fine.to(torch.uint8).cpu().numpy(),
+            comp, g)
+
+
 def phase_exhaustive(dev, card):
     """The exhaustive exact-ADC path at face-index scale (FACE)."""
-    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         BLK,
         ExhaustiveADC,
         ExhaustiveADCSearcher,
+        _scan_tiling,
         adc_scan_all,
         adc_scan_all_plain,
         build_query_luts,
+        build_query_luts_tiled,
+        tile_luts,
     )
     from columbiaimagesearch_tpu_torch.index.lut import build_luts
 
     cfg = FACE
     V, k, n = cfg["V"], cfg["k"], cfg["rows"]
     sync = torch.cuda.synchronize
-    g = torch.Generator(device=dev)
-    g.manual_seed(cfg["seed"] + 7)
-    comp = torch.randn(256, cfg["D"], generator=g, device=dev)
-    comp /= comp.norm(dim=1, keepdim=True)
     t0 = time.perf_counter()
-    model = make_model(mixture(cfg["train"], comp, g), V, cfg["M"],
-                       cfg["S"], g)
-    rows = mixture(n, comp, g)
-    coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
-                               rows, chunk=8192)
-    coarse = coarse.cpu().numpy()
-    fine = fine.to(torch.uint8).cpu().numpy()
-    del rows
+    model, coarse, fine, comp, g = face_index(dev)
     log(f"exhaustive: model (V={V} M={cfg['M']} S={cfg['S']} "
         f"D={cfg['D']}) + {n} rows made and encoded in "
         f"{time.perf_counter() - t0:.1f}s [{card}]")
@@ -816,18 +1028,26 @@ def phase_exhaustive(dev, card):
     d = ex._dev
     Q = mixture(max(cfg["nqs"]), comp, g)
 
-    # The scan kernel vs plain on this index at NQ=8 (launches not counted).
-    lut0, lut1 = build_query_luts(Q[:8], d["Cs"], d["Rs"], d["mus"],
-                                  d["subs"])
-    args = (d["codes"], d["block_cell"], d["block_count"], lut0, lut1)
-    got = adc_scan_all(*args, V=V)
-    sync()
-    want = adc_scan_all_plain(*args, V=V)
-    k_ms, p_ms = _time_scan(args, V)
-    max_abs = _scan_compare(f"face NQ=8 (V={V} M={cfg['M']} S={cfg['S']} "
-                            f"rows={n} padded={npad})", got, want, card,
-                            k_ms, p_ms)
-    del got, want
+    # The scan kernel vs plain on this index at NQ 64 and 8 (launches not
+    # counted); the NQ=8 tables stay for the selection check below.
+    face = {}
+    for nq in sorted(cfg["nqs"], reverse=True):
+        lut0, lut1 = build_query_luts(Q[:nq], d["Cs"], d["Rs"], d["mus"],
+                                      d["subs"])
+        args = (d["codes"], d["block_cell"], d["block_count"], lut0, lut1)
+        face[nq] = _scan_check(f"face NQ={nq} (V={V} M={cfg['M']} "
+                               f"S={cfg['S']} rows={n} padded={npad})",
+                               args, V, card)
+        # search_batch's route to the same tables: the scan's tiled layout
+        # made in one copy from the all-clusters LUT call
+        QT, Sp, _ = _scan_tiling(nq, cfg["M"], cfg["S"])
+        for half, t in zip((lut0, lut1), build_query_luts_tiled(
+                Q[:nq], d["Cs"], d["Rs"], d["mus"], d["subs"])):
+            if not torch.equal(t, tile_luts(half, QT, Sp)):
+                raise AssertionError(f"exhaustive NQ={nq}: "
+                                     "build_query_luts_tiled differs from "
+                                     "tile_luts(build_query_luts)")
+    max_abs = max(r["max_abs"] for r in face.values())
 
     adc_scan_all.launches = 0                  # counts this path only
     build_luts.launches = 0
@@ -870,16 +1090,17 @@ def phase_exhaustive(dev, card):
     pv, pi = torch.sort(plain, dim=1, stable=True)
     pv, pi = pv[:, :k].cpu().numpy(), pi[:, :k].cpu().numpy()
     swaps = 0
-    for q in range(4):
-        ids, dists = results[8][q]
+    for nq, q in itertools.product(cfg["nqs"], range(4)):
+        ids, dists = results[nq][q]
         want_ids = ex._ids[pi[q]].tolist()
         np.testing.assert_allclose(dists, pv[q], rtol=LUT_RTOL,
                                    atol=LUT_ATOL)
         diff = np.array(ids) != np.array(want_ids)
         if (np.abs(dists - pv[q])[diff]
                 > 1e-4 * np.maximum(1, pv[q][diff])).any():
-            raise AssertionError(f"exhaustive query {q}: ids differ from "
-                                 "the plain selection beyond rounding ties")
+            raise AssertionError(f"exhaustive nq={nq} query {q}: ids differ "
+                                 "from the plain selection beyond rounding "
+                                 "ties")
         swaps += int(diff.sum())
     del plain, pv, pi, lut0, lut1, args
     for nq in cfg["nqs"]:
@@ -902,11 +1123,12 @@ def phase_exhaustive(dev, card):
             raise AssertionError("ExhaustiveADCSearcher differs from "
                                  "ExhaustiveADC on the same rows")
     log(f"exhaustive: checks passed: {k} distinct ids with finite ascending "
-        f"distances per query; 4 queries equal a stable selection on the "
-        f"plain distances ({swaps} rounding-tie swaps); "
+        f"distances per query; 4 queries of each nq equal a stable "
+        f"selection on the plain distances ({swaps} rounding-tie swaps); "
+        f"the tiled tables equal tile_luts(build_query_luts); "
         f"ExhaustiveADCSearcher equals ExhaustiveADC on {sub} rows")
     return dict(adc_launches=adc_launches, lut_launches=lut_launches,
-                max_abs=max_abs, ms=k_ms, plain_ms=p_ms)
+                max_abs=max_abs, face=face)
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1374,8 +1596,8 @@ def main():
         f"cuda={torch.version.cuda}")
     log(card)
     phase_build()
-    worst, (k_ms, p_ms) = phase_kernel_check(dev, card, cfg["seed"])
-    scan_worst = phase_scan_check(dev, card, cfg["seed"])
+    worst, luts = phase_kernel_check(dev, card, cfg["seed"])
+    scan_worst, _ = phase_scan_check(dev, card, cfg["seed"])
     state, launches = phase_main_path(dev, cfg, card)
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
@@ -1394,19 +1616,23 @@ def main():
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path; adc_scan "
         f"{ex['adc_launches']} on the exhaustive path")
+    head, face = luts["headline NQ=100"], ex["face"][8]
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
         "launches": launches + serving["launches"]["lut"]
         + ex["lut_launches"], "max_abs_err": worst,
-        "ms": k_ms, "plain_ms": p_ms}, {
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None}, {
         "name": "adc_scan", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/adc_scan.cu",
         "replaces": "columbiaimagesearch_tpu/index/pallas_adc.py:35",
         "launches": ex["adc_launches"],
-        "max_abs_err": max(scan_worst, ex["max_abs"]), "ms": ex["ms"],
-        "plain_ms": ex["plain_ms"]}]}))
+        "max_abs_err": max(scan_worst, ex["max_abs"]), "ms": face["ms"],
+        "plain_ms": face["plain_ms"], "bound_ms": face["bound_ms"],
+        "bound_by": face["bound_by"], "library_ms": face["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

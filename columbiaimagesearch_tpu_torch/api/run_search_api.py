@@ -8,6 +8,10 @@ takes traffic.
 
 Usage: python -m columbiaimagesearch_tpu_torch.api.run_search_api \\
           -c conf/conf_search_local.json -e cuimgsearch -p 5000
+
+``--device`` (default ``cuda``) is where the model, the index and the
+featurizer live. Without a card the default raises at once, before the
+boot retries; ``--device cpu`` serves from the CPU.
 """
 
 import argparse
@@ -23,15 +27,20 @@ def main(argv=None):
     ap.add_argument("-p", "--port", type=int, default=5000)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--retry-delay", type=int, default=60)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve from (default: cuda)")
     args = ap.parse_args(argv)
 
     from columbiaimagesearch_tpu_torch.api.app import make_server
     from columbiaimagesearch_tpu_torch.common.factory import build_searcher
+    from columbiaimagesearch_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)    # no card: raise, do not retry
 
     searcher = None
     while searcher is None:
         try:
-            searcher = build_searcher(args.conf)
+            searcher = build_searcher(args.conf, device=device)
         except Exception as inst:  # noqa: BLE001 — boot retries forever
             print(f"[run_search_api] searcher init failed: {inst}; "
                   f"retrying in {args.retry_delay}s", file=sys.stderr)

@@ -49,17 +49,20 @@ def build_storer(conf, prefix="ST_"):
                       base_path=r.get_param("base_path", "./storer_data"))
 
 
-def build_extractor(conf, prefix="EXTR_"):
+def build_extractor(conf, prefix="EXTR_", device=None):
     from columbiaimagesearch_tpu_torch.extraction.extractor import GenericExtractor
 
     r = ConfReader(conf, prefix)
     return GenericExtractor(
         detector_type=r.get_param("detector_type", "full"),
         featurizer_type=r.get_param("featurizer_type", "sentibank"),
-        input_type=r.get_param("input_type", "image"))
+        input_type=r.get_param("input_type", "image"), device=device)
 
 
-def build_searcher(conf, prefix="SEARCHLOPQ_", indexer=None, storer=None):
+def build_searcher(conf, prefix="SEARCHLOPQ_", indexer=None, storer=None,
+                   device=None):
+    """The ``SearcherLOPQ`` facade of ``conf``, on ``device`` (default: the
+    first card; raises without one)."""
     from columbiaimagesearch_tpu_torch.searcher.searcher_lopq import SearcherLOPQ
 
     r = ConfReader(conf, prefix)
@@ -106,7 +109,7 @@ def build_searcher(conf, prefix="SEARCHLOPQ_", indexer=None, storer=None):
             if r.get_param("coalesce_window_ms") is not None else None),
         coalesce_max_batch=int(r.get_param("coalesce_max_batch", 32)),
         indexer=indexer, storer=storer,
-        verbose=int(r.get_param("verbose", 0)))
+        verbose=int(r.get_param("verbose", 0)), device=device)
 
 
 # ----------------------------------------------------------- env generators

@@ -7,10 +7,14 @@ flip argmins. Both PyTorch switches are set here, once, when the package
 is imported.
 
 Every function takes its ``device`` (or the device of the tensors it is
-given) explicitly. :func:`default_device` is read only where no caller can
-pass one: a model unpickled from a storer, and the featurizer and models
-the serving facade builds from a configuration.
+given) explicitly. Where a caller may leave it out (the serving facade,
+the featurizer, ``run_search_api``), :func:`resolve_device` reads ``None``
+as the first card and raises when there is none: the CPU runs only where
+a caller names it (``device="cpu"``, ``--device cpu``), never because the
+card is missing.
 """
+
+import functools
 
 import torch
 
@@ -25,10 +29,38 @@ CPU_WORKSET_BYTES = 2e9
 
 
 def default_device():
-    """The first CUDA card when there is one, else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", 0)
-    return torch.device("cpu")
+    """The first CUDA card.
+
+    :raises RuntimeError: when no card is available; the CPU is never
+        picked in its place
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card unless "
+            "the caller asks for the CPU: pass device='cpu' (run_search_api: "
+            "--device cpu)")
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``: ``None`` and an unnumbered
+    ``"cuda"`` are :func:`default_device` (which raises without a card)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    return default_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """The SM count of a CUDA ``device`` (kernel grid sizes), read once."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def free_bytes(device):

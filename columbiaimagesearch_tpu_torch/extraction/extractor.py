@@ -42,16 +42,20 @@ def build_extr_str_failed(featurizer_type, detector_type, input_type):
         + "_" + EXTR_STR_FAILED
 
 
-def get_featurizer(featurizer_type, params=None, device_decode=False):
+def get_featurizer(featurizer_type, params=None, device_decode=False,
+                   device=None):
     """Factory (reference: featurizer/generic_featurizer.py:5-41).
-    ``device_decode=True`` raises: see the module docstring."""
+    ``device_decode=True`` raises: see the module docstring. ``device``:
+    where the featurizer runs (default: the first card; raises without
+    one)."""
     if featurizer_type in ("sbpycaffe", "sentibank"):
         from columbiaimagesearch_tpu_torch.models.sentibank import (
             SentibankFeaturizer,
         )
 
         return SentibankFeaturizer(params=params,
-                                   device_decode=device_decode)
+                                   device_decode=device_decode,
+                                   device=device)
     elif featurizer_type in ("dlib", "face"):
         raise NotImplementedError(FACES_NOT_PORTED)
     raise ValueError(f"[get_featurizer: error] unknown featurizer {featurizer_type}")
@@ -71,7 +75,8 @@ class GenericExtractor:
     extraction; see the module docstring for faces)."""
 
     def __init__(self, detector_type, featurizer_type, input_type="image",
-                 extr_column="ext", detector=None, featurizer=None):
+                 extr_column="ext", detector=None, featurizer=None,
+                 device=None):
         self.detector_type = detector_type
         self.featurizer_type = featurizer_type
         self.input_type = input_type
@@ -81,7 +86,8 @@ class GenericExtractor:
         if self.detector is not None:
             raise NotImplementedError(FACES_NOT_PORTED)
         self.featurizer = (featurizer if featurizer is not None
-                           else get_featurizer(featurizer_type))
+                           else get_featurizer(featurizer_type,
+                                               device=device))
         base = build_extr_str(featurizer_type, detector_type, input_type)
         self.extr_str = f"{extr_column}:{base}"
         self.extr_str_processed = \

@@ -9,9 +9,10 @@ encodes through :func:`index.encode.lopq_encode`. ``export_npz``/
 :meth:`LOPQModel.from_numpy` takes a JAX ``LOPQModel``'s numpy tuples
 (``model.Cs, model.Rs, model.mus, model.subquantizers``), so both packages
 can run on the same weights. A pickled model (the facade's storer keeps
-one) holds the same npz fields as numpy arrays and is rebuilt on the
-unpickling process's default device (``device.default_device``), so a
-model saved on the CPU loads on the card and the reverse.
+one) holds the same npz fields as numpy arrays and unpickles as a host
+(CPU) model, whatever device it was saved from and whether or not a card
+is present; whoever runs it places it with :meth:`LOPQModel.to` (the
+``SearcherLOPQ`` facade moves it to its own device).
 
 :class:`LOPQModelPCA` adds the PCA front end of the release model
 (``lopq_pca``): ``pca_P [D_raw, D]``, ``pca_mu [D_raw]`` and ``renorm``.
@@ -25,7 +26,6 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from columbiaimagesearch_tpu_torch.device import default_device
 from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
 from columbiaimagesearch_tpu_torch.utils.codes import code_dtype_for
 
@@ -87,6 +87,14 @@ class LOPQModel:
     @classmethod
     def _from_fields(cls, d, *, device):
         return cls(d["Cs"], d["Rs"], d["mus"], d["subs"], device=device)
+
+    def to(self, device):
+        """This model on ``device``: itself when it is there already,
+        else a copy of the same type."""
+        device = torch.device(device)
+        if device == self.Cs.device:
+            return self
+        return type(self)._from_fields(self._npz_fields(), device=device)
 
     def export_npz(self, filename):
         np.savez_compressed(filename, **self._npz_fields())
@@ -156,4 +164,4 @@ class LOPQModelPCA(LOPQModel):
 
 
 def _unpickle_model(cls, fields):
-    return cls._from_fields(fields, device=default_device())
+    return cls._from_fields(fields, device="cpu")

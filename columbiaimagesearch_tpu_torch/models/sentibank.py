@@ -25,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from columbiaimagesearch_tpu_torch.device import default_device
+from columbiaimagesearch_tpu_torch.device import resolve_device
 from columbiaimagesearch_tpu_torch.models.layers import caffe_max_pool, lrn
 from columbiaimagesearch_tpu_torch.models.preprocess import (
     TARGET,
@@ -242,7 +242,8 @@ class SentibankFeaturizer:
         :param compute_dtype: "float32" or "bfloat16" (features are
             returned as float32 either way)
         :param dct_scale: DCT-scaled JPEG decode in the native pipeline
-        :param device: torch device; default: the first card, else CPU
+        :param device: torch device; default: the first card (raises
+            when there is none: pass ``device="cpu"`` for the CPU)
         """
         if device_decode:
             raise NotImplementedError(
@@ -254,8 +255,7 @@ class SentibankFeaturizer:
                              "bfloat16")
         self.dct_scale = dct_scale
         self.device_decode = False
-        self.device = (torch.device(device) if device is not None
-                       else default_device())
+        self.device = resolve_device(device)
         if params is None:
             params = load_default_weights()
         self.pretrained = params is not None

@@ -23,11 +23,14 @@ Differences from the JAX module:
 - The device stage runs under ``torch.inference_mode``: it runs in the
   coalescer's thread, and grad mode is per thread.
 - Device features are detected as ``torch.Tensor`` (on the CPU too).
+- ``device`` (default: the first card; raises without one) is where the
+  featurizer the searcher builds runs; ``device="cpu"`` asks for the CPU.
 """
 
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.device import resolve_device
 from columbiaimagesearch_tpu_torch.searcher.output_mapping import DictOutput
 
 
@@ -38,7 +41,9 @@ class GenericSearcher:
                  reranking=False, rerank_nb=None, skip_get_sim_info=False,
                  file_input=False, dict_output_type="CamelCase",
                  detector=None, featurizer=None, indexer=None, storer=None,
-                 verbose=0, coalesce_window_ms=None, coalesce_max_batch=32):
+                 verbose=0, coalesce_window_ms=None, coalesce_max_batch=32,
+                 device=None):
+        self.device = resolve_device(device)
         self.detector_type = detector_type
         self.featurizer_type = featurizer_type
         self.input_type = input_type
@@ -70,7 +75,8 @@ class GenericSearcher:
         else:
             from columbiaimagesearch_tpu_torch.extraction.extractor import get_featurizer
 
-            self.featurizer = get_featurizer(featurizer_type)
+            self.featurizer = get_featurizer(featurizer_type,
+                                             device=self.device)
         self.indexer = indexer
         self.storer = storer
 
@@ -102,7 +108,8 @@ class GenericSearcher:
         keys = ["detector_type", "featurizer_type", "input_type", "sim_limit",
                 "quota", "near_dup", "near_dup_th", "top_feature",
                 "reranking", "rerank_nb", "skip_get_sim_info", "file_input",
-                "verbose", "coalesce_window_ms", "coalesce_max_batch"]
+                "verbose", "coalesce_window_ms", "coalesce_max_batch",
+                "device"]
         kwargs = {k: conf[k] for k in keys if k in conf}
         kwargs.update(components)
         return cls(**kwargs)

@@ -5,8 +5,10 @@ Re-design of the reference's SearcherLOPQHBase
 (reference: cufacesearch/searcher/searcher_lopqhbase.py:25-1067):
 
 - model lifecycle: load the pickled model from the storer (the port's
-  models pickle as numpy in the JAX npz layout and land on this process's
-  device);
+  models pickle as numpy in the JAX npz layout and unpickle on the host)
+  and place it, or the model handed in, on the facade's ``device``
+  (default: the first card; raises without one, so a missing card never
+  turns into a silent CPU run);
 - incremental ``load_codes``: per-update code dicts cached in the storer
   (``<model_str>_codes/<update_id>``), an indexed-updates set persisted so
   restarts resume where they left off;
@@ -120,6 +122,7 @@ class SearcherLOPQ(GenericSearcher):
         if self.model is None and self.train_at_init:
             self.train_index()
         if self.model is not None:
+            self.model = self.model.to(self.device)
             self._init_device_searcher()
             saved = (self.storer.load(self._indexed_key())
                      if self.storer is not None else None)

@@ -229,7 +229,7 @@ def serving_pair(env):
             pca_dims=32, model=m, detector_type="full",
             featurizer=env["tf"], indexer=KVIndexer(path=":memory:"),
             storer=MemoryStorer(), file_input=True, reranking=True,
-            rerank_nb=20, **kw)
+            rerank_nb=20, device="cpu", **kw)
         s.searcher.add_codes(m.predict_batch(X), ids=sha1s,
                              feats=m.apply_PCA(X))
         return s
@@ -423,7 +423,7 @@ def test_run_search_api_serves_status(env, tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "columbiaimagesearch_tpu_torch.api."
          "run_search_api", "-c", str(conf_path), "-p", str(port),
-         "--host", "127.0.0.1"], cwd=REPO,
+         "--host", "127.0.0.1", "--device", "cpu"], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO, SENTIBANK_WEIGHTS=env["npz"]),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:

@@ -24,13 +24,19 @@ import torch
 
 from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
     BLK,
+    ITEM_BLOCKS,
     ExhaustiveADC,
     ExhaustiveADCSearcher,
+    _scan_tiling,
     _topk_ascending,
     adc_scan_all,
     adc_scan_all_plain,
+    adc_scan_tiled,
     build_padded_layout,
     build_query_luts,
+    build_query_luts_tiled,
+    scan_items,
+    tile_luts,
 )
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel
 
@@ -132,6 +138,38 @@ def test_build_query_luts_matches_jax():
         assert g.shape == (V, M // 2, S, 5) and g.is_contiguous()
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                    atol=ATOL)
+
+
+@pytest.mark.parametrize("NQ", [1, 5, 8, 13])
+def test_build_query_luts_tiled_matches_jax(NQ):
+    """The tables ExhaustiveADC hands the kernel, built tiled in one copy
+    from the LUT output, hold the JAX tables (rtol 1e-5, atol 1e-4) at
+    their tiled positions, and equal tile_luts of the JAX-layout tables."""
+    import jax.numpy as jnp
+
+    from columbiaimagesearch_tpu.index import pallas_adc as jpa
+
+    rng = np.random.RandomState(30 + NQ)
+    _, tm = _models(_params(rng, "random"))
+    X = _queries(rng, "random", NQ)
+    want = jpa.build_query_luts(
+        jnp.asarray(X), *(jnp.asarray(t.numpy())
+                          for t in (tm.Cs, tm.Rs, tm.mus, tm.subs)))
+    got = build_query_luts_tiled(torch.from_numpy(X), tm.Cs, tm.Rs, tm.mus,
+                                 tm.subs)
+    QT, Sp, _ = _scan_tiling(NQ, M, S)
+    T = -(-NQ // QT)
+    plain = build_query_luts(torch.from_numpy(X), tm.Cs, tm.Rs, tm.mus,
+                             tm.subs)
+    for g, w, p in zip(got, want, plain):
+        assert g.shape == (V, T, M // 2, Sp, QT) and g.is_contiguous()
+        back = g.permute(0, 2, 3, 1, 4).reshape(V, M // 2, Sp, T * QT)
+        np.testing.assert_allclose(back[:, :, :S, :NQ].numpy(),
+                                   np.asarray(w), rtol=RTOL, atol=ATOL)
+        assert not back[:, :, :, NQ:].any()
+        assert torch.equal(g, tile_luts(p, QT, Sp))
+    if NQ == QT:               # the layouts coincide: a view, no copy
+        assert tile_luts(plain[0], QT, Sp).data_ptr() == plain[0].data_ptr()
 
 
 def test_plain_scan_matches_pallas_interpret():
@@ -301,6 +339,135 @@ def test_exhaustive_searcher_matches_jax():
     assert ExhaustiveADCSearcher(tm).search(q[0]) == ([], 0)
 
 
+def _items_by_loop(bc, cap):
+    """The work items, one block at a time."""
+    out = []
+    for b in range(len(bc)):
+        if b == 0 or bc[b] != bc[b - 1] or b - out[-1] == cap:
+            out.append(b)
+    return out + [len(bc)]
+
+
+@pytest.mark.parametrize("layout", ["random-9", "random-64", "long-runs",
+                                    "one-cell", "empty"])
+def test_scan_items_start_at_cell_boundaries(layout):
+    """Items start at every cell change, hold one cell each, and split a
+    run every ITEM_BLOCKS blocks."""
+    rng = np.random.RandomState(11)
+    if layout == "empty":
+        cells = np.zeros(0, dtype=np.int64)
+    elif layout == "one-cell":
+        cells = np.full(23 * BLK + 5, 7)
+    elif layout == "long-runs":           # runs of 1..13 blocks
+        cells = np.repeat(np.arange(6), rng.randint(1, 13 * BLK, 6))
+    else:
+        n_cells = int(layout.split("-")[1])
+        cells = rng.randint(0, n_cells, 5000)
+    fine = np.zeros((len(cells), M), np.uint8)
+    _, bc, _, _ = build_padded_layout(cells, fine)
+    items = scan_items(torch.from_numpy(bc))
+    assert items.dtype == torch.int32
+    assert items.tolist() == _items_by_loop(bc.tolist(), ITEM_BLOCKS)
+    it = items.numpy()
+    assert (np.diff(it) >= 1).all() and (np.diff(it) <= ITEM_BLOCKS).all()
+    for a, b in zip(it[:-1], it[1:]):
+        assert (bc[a:b] == bc[a]).all()
+
+
+@pytest.mark.parametrize("NQ,S", [(1, 16), (3, 16), (8, 30), (13, 30)])
+def test_tile_luts_layout(NQ, S):
+    """[V, F, S, NQ] -> [V, T, F, Sp, QT]: entry (v, t, f, s, k) is query
+    t*QT + k; the padded queries and entries are 0."""
+    rng = np.random.RandomState(NQ)
+    lut = torch.from_numpy(rng.rand(5, 2, S, NQ).astype(np.float32))
+    QT, Sp, smem = _scan_tiling(NQ, 4, S)
+    assert Sp % 4 == 0 and Sp >= S and smem > 0
+    assert QT == min(8, 1 << (NQ - 1).bit_length())
+    t = tile_luts(lut, QT, Sp)
+    T = -(-NQ // QT)
+    assert t.shape == (5, T, 2, Sp, QT) and t.is_contiguous()
+    back = t.permute(0, 2, 3, 1, 4).reshape(5, 2, Sp, T * QT)
+    assert torch.equal(back[:, :, :S, :NQ], lut)
+    assert not back[:, :, S:].any() and not back[:, :, :, NQ:].any()
+
+
+@pytest.mark.parametrize("kind,NQ", [("integer", 1), ("integer", 3),
+                                     ("integer", 12), ("random", 8),
+                                     ("random", 13)])
+def test_tiled_scan_matches_pallas_interpret(kind, NQ):
+    """The CPU route of adc_scan_all (tiled tables, work items) against the
+    JAX scan in interpret mode on the JAX layout, count-0 blocks included:
+    bit-equal on the integer model, rtol 1e-5 / atol 1e-4 on the random
+    one; identical +inf positions."""
+    import jax.numpy as jnp
+
+    from columbiaimagesearch_tpu.index import pallas_adc as jpa
+
+    rng = np.random.RandomState(20 + NQ)
+    _, tm = _models(_params(rng, kind))
+    coarse, fine, _ = _corpus(rng, 1500, 0)
+    coarse[:400] = coarse[0]                 # a cell spanning 4+ blocks
+    cells = coarse[:, 0].astype(np.int64) * V + coarse[:, 1]
+    codes, bc, bn, _ = jpa.build_padded_layout(cells, fine)
+    X = _queries(rng, kind, NQ)
+    lut0, lut1 = jpa.build_query_luts(
+        jnp.asarray(X), *(jnp.asarray(t.numpy())
+                          for t in (tm.Cs, tm.Rs, tm.mus, tm.subs)))
+    bc, bn = bc.astype(np.int32), bn.astype(np.int32)
+    want = np.asarray(jpa.adc_scan_all(
+        jnp.asarray(codes), jnp.asarray(bc), jnp.asarray(bn), lut0, lut1,
+        V=V, n_blocks=len(bc), interpret=True))
+    args = [torch.from_numpy(np.array(a)) for a in (codes, bc, bn, lut0,
+                                                    lut1)]
+    got = adc_scan_all(*args, V=V).numpy()
+    assert (np.diff(scan_items(args[1]).numpy()) > 1).any()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert (got[~fin] == np.inf).all()
+    if kind == "integer":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(got, adc_scan_all_plain(*args, V=V))
+
+
+def test_tiled_plain_poisons_bad_cells_and_codes():
+    """The kernel's rules in the plain scan, on the CPU, through both entry
+    points (the JAX layout and the tiled one): an out-of-range cell makes
+    its valid rows NaN, a code byte >= S its own row; padding stays
+    +inf."""
+    rng = np.random.RandomState(12)
+    Sb = 30
+    cells = rng.randint(0, V * V, 700)
+    fine = rng.randint(0, Sb, (700, M)).astype(np.uint8)
+    codes, bc, bn, _ = build_padded_layout(cells, fine)
+    bc[2] = V * V                        # out of range
+    codes[3 * BLK] = [0, Sb, 1, 2]       # a code byte >= S
+    lut = [torch.from_numpy(rng.rand(V, M // 2, Sb, 5).astype(np.float32))
+           for _ in range(2)]
+    args = [torch.from_numpy(a) for a in (codes, bc, bn)] + lut
+    got = adc_scan_all(*args, V=V)
+    assert torch.isnan(got[:, 2 * BLK:2 * BLK + bn[2]]).all()
+    assert torch.isinf(got[:, 2 * BLK + bn[2]:3 * BLK]).all()
+    assert torch.isnan(got[:, 3 * BLK]).all()
+    ok = torch.ones(got.shape[1], dtype=torch.bool)
+    ok[2 * BLK:3 * BLK] = False
+    ok[3 * BLK] = False
+    bc_ok = bc.copy()
+    bc_ok[2] = 0
+    codes_ok = codes.copy()
+    codes_ok[3 * BLK] = 0
+    want = adc_scan_all_plain(torch.from_numpy(codes_ok),
+                              torch.from_numpy(bc_ok), args[2], *lut, V=V)
+    assert torch.equal(got[:, ok], want[:, ok])
+    QT, Sp, _ = _scan_tiling(5, M, Sb)
+    direct = adc_scan_tiled(
+        *args[:3], tile_luts(lut[0], QT, Sp), tile_luts(lut[1], QT, Sp),
+        V=V, NQ=5, S=Sb)
+    assert torch.equal(direct.isnan(), got.isnan())
+    assert torch.equal(direct[~got.isnan()], got[~got.isnan()])
+
+
 # ------------------------------------------------------------- card only
 
 
@@ -332,11 +499,12 @@ def _odd_layout(rng, NQ, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("NQ", [1, 3, 12])
+@pytest.mark.parametrize("NQ", [1, 3, 8, 12, 64])
 def test_scan_kernel_matches_plain_on_card(cuda_device, NQ):
-    """Kernel vs plain version on the card (fp32 sums in the same m order;
-    rtol 1e-5, atol 1e-4) with identical +inf positions. NQ 1, 3 and 12
-    take query tiles of 1, 4 and 8 (a ragged last tile)."""
+    """Kernel vs plain version on the card: bit-equal (both add the M
+    entries in m order), identical +inf positions. NQ 1, 3, 8, 12 and 64
+    take query tiles of 1, 4 and 8 (12: a ragged last tile; 64: eight
+    tiles)."""
     args, Vo = _odd_layout(np.random.RandomState(NQ), NQ, cuda_device)
     before = adc_scan_all.launches
     got = adc_scan_all(*args, V=Vo)
@@ -345,7 +513,45 @@ def test_scan_kernel_matches_plain_on_card(cuda_device, NQ):
     want = adc_scan_all_plain(*args, V=Vo)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     assert int(torch.isinf(got).sum()) > 3 * BLK * NQ
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mo", [4, 8])
+@pytest.mark.parametrize("NQ", [1, 3, 8, 64])
+def test_scan_kernel_edges_on_card(cuda_device, NQ, Mo):
+    """The persistent kernel's edges: a cell of 10 blocks (three work
+    items), 300 cells so that c // V changes inside a block's range,
+    count-0 blocks at the front, middle and end, an out-of-range cell and
+    a code byte >= S (NaN rows). Equal to the plain scan on the CPU,
+    NaN positions included. M=8 takes the kernel's unrolled gathers, M=4
+    its loop."""
+    rng = np.random.RandomState(100 + NQ)
+    Vo, So = 37, 30
+    cells = np.concatenate([np.full(10 * BLK - 3, 40),
+                            rng.randint(0, Vo * Vo, 4000)])
+    fine = rng.randint(0, So, (len(cells), Mo)).astype(np.uint8)
+    codes, bc, bn, _ = build_padded_layout(cells, fine)
+    at = [0, len(bc) // 2, len(bc)]
+    codes = np.insert(codes.reshape(-1, BLK, Mo), at,
+                      rng.randint(0, So, (BLK, Mo)), axis=0).reshape(-1, Mo)
+    bc = np.insert(bc, at, [3, 5, Vo * Vo - 1]).astype(np.int32)
+    bn = np.insert(bn, at, 0).astype(np.int32)
+    bc[7] = Vo * Vo + 2
+    codes[9 * BLK + 1, 2] = So + 3
+    lut = [rng.rand(Vo, Mo // 2, So, NQ).astype(np.float32)
+           for _ in range(2)]
+    cpu = [torch.from_numpy(a) for a in (codes, bc, bn, *lut)]
+    items = scan_items(cpu[1])
+    assert (torch.diff(items) == ITEM_BLOCKS).sum() >= 2
+    want = adc_scan_all(*cpu, V=Vo, items=items)      # the plain scan
+    got = adc_scan_all(*[a.to(cuda_device) for a in cpu], V=Vo,
+                       items=items.to(cuda_device))
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()], want[~want.isnan()])
 
 
 @pytest.mark.cuda

@@ -138,8 +138,9 @@ def _pair(store, facade_kw=None, pca=None, featurizers=None):
         probe.__dict__.update(kw, featurizer_type="sentibank",
                               detector_type="full", input_type="image")
         storer.save(cls.build_model_str(probe), model)
+        dev = {"device": "cpu"} if name == "port" else {}
         out.append(cls(indexer=kv_cls(path=path), storer=storer,
-                       featurizer=fz, **kw))
+                       featurizer=fz, **kw, **dev))
     return out
 
 
@@ -235,10 +236,11 @@ def test_load_codes_refresh_and_resume_match_jax(store):
         assert ts.storer.load(ts._codes_key(uid)) == \
             js.storer.load(js._codes_key(uid))
     # a new facade resumes from the storer without the indexer's updates
-    for f, cls in ((js, JaxSearcherLOPQ), (ts, SearcherLOPQ)):
+    for f, cls, dev in ((js, JaxSearcherLOPQ, {}),
+                        (ts, SearcherLOPQ, {"device": "cpu"})):
         again = cls(model_type="lopq", V=V, M=M, subquantizer_clusters=S,
                     detector_type="full", featurizer=_NoFeaturizer(),
-                    indexer=None, storer=f.storer)
+                    indexer=None, storer=f.storer, **dev)
         assert again.get_nb_indexed() == N_IMGS + 5
     assert ts.status()["nb_indexed"] == js.status()["nb_indexed"]
 
@@ -270,7 +272,7 @@ def test_exact_facade_matches_jax():
     js = JaxSearcherLOPQ(model=JaxModel(parameters=params), indexer=jkv,
                          storer=JaxMemoryStorer(), **kw)
     ts = SearcherLOPQ(model=LOPQModel.from_numpy(*params, device="cpu"),
-                      indexer=kv, storer=MemoryStorer(), **kw)
+                      indexer=kv, storer=MemoryStorer(), device="cpu", **kw)
     assert type(ts.searcher).__name__ == "ExhaustiveADCSearcher"
     assert ts.get_nb_indexed() == js.get_nb_indexed() == 300
     for qi in (3, 77):
@@ -284,7 +286,8 @@ def test_exact_facade_matches_jax():
 
 def test_unported_options_raise(store):
     base = dict(model_type="lopq", V=V, M=M, subquantizer_clusters=S,
-                detector_type="full", featurizer=_NoFeaturizer())
+                detector_type="full", featurizer=_NoFeaturizer(),
+                device="cpu")
     for kw, match in ((dict(sharded=True), "#14"),
                       (dict(codestore_path="x"), "#6"),
                       (dict(rerank_dtype="bfloat16"), "Queue 1 #8"),
@@ -348,7 +351,7 @@ def test_factory_builds_the_facade_from_a_conf(store, tmp_path):
 
     sl.GenericSearcher.__init__ = no_featurizer
     try:
-        s = build_searcher(conf_path)
+        s = build_searcher(conf_path, device="cpu")
     finally:
         sl.GenericSearcher.__init__ = orig
     try:

@@ -14,6 +14,7 @@ import torch
 
 from columbiaimagesearch_tpu_torch.index.lut import (
     build_luts,
+    build_luts_all_clusters,
     build_luts_plain,
 )
 
@@ -124,3 +125,102 @@ def test_kernel_matches_plain_on_card(tables, cuda_device, NQ, Bq):
     assert torch.isnan(poisoned[0, 1, 2]).all()
     poisoned[0, 1, 2] = got[0, 1, 2]
     torch.testing.assert_close(poisoned, got, rtol=0, atol=0)
+
+
+def _grouping_case(pattern, NQ, Bq=8, Dh=32, F=4, S=32):
+    """Inputs whose probed (split, cluster) groups take one shape:
+    ``one-cluster`` (every slot of a split on one cluster: one group of
+    NQ * Bq slots a split), ``distinct`` (no two slots share a cluster) or
+    ``random``."""
+    rng = np.random.RandomState(len(pattern) * 100 + NQ)
+    V = max(16, NQ * Bq)
+    Cs = rng.randn(2, V, Dh).astype(np.float32)
+    Rs = (rng.randn(2, V, Dh, Dh) / np.sqrt(Dh)).astype(np.float32)
+    mus = 0.1 * rng.randn(2, V, Dh).astype(np.float32)
+    subs = rng.randn(2, F, S, Dh // F).astype(np.float32)
+    x2 = rng.randn(NQ, 2, Dh).astype(np.float32)
+    if pattern == "one-cluster":
+        isel = np.full((NQ, 2, Bq), 5)
+    elif pattern == "distinct":
+        isel = np.stack([rng.permutation(V)[:NQ * Bq].reshape(NQ, Bq)
+                         for _ in range(2)], 1)
+    else:
+        isel = rng.randint(0, V, (NQ, 2, Bq))
+    return x2, isel.astype(np.int32), Cs, Rs, mus, subs
+
+
+@pytest.mark.parametrize("pattern,NQ", [("one-cluster", 3),
+                                        ("distinct", 3), ("distinct", 1)])
+def test_plain_matches_pallas_interpret_on_grouping_edges(pattern, NQ):
+    """The plain version against the Pallas kernel in interpret mode on the
+    isel patterns the card's grouping has to handle (rtol 1e-4, atol
+    1e-5, as above)."""
+    import jax.numpy as jnp
+
+    from columbiaimagesearch_tpu.index.tpu_query import build_luts_pallas
+
+    x2, isel, Cs, Rs, mus, subs = _grouping_case(pattern, NQ)
+    got = build_luts_plain(*_t(x2, isel, Cs, Rs, mus, subs)).numpy()
+    for q in range(NQ):
+        lut0, lut1 = build_luts_pallas(
+            jnp.asarray(x2[q]), jnp.asarray(isel[q]), jnp.asarray(Cs),
+            jnp.asarray(Rs), jnp.asarray(mus), jnp.asarray(subs),
+            interpret=True)
+        want = np.stack([np.asarray(lut0), np.asarray(lut1)])
+        np.testing.assert_allclose(got[q], want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one-cluster", "distinct", "random"])
+@pytest.mark.parametrize("NQ", [1, 3, 8, 64])
+def test_kernel_grouping_edges_on_card(cuda_device, pattern, NQ):
+    """Kernel vs plain version on the card (rtol 1e-5, atol 1e-4) with
+    every slot on one cluster, with all slots distinct, and at random.
+    NQ > 1 groups the slots by a counting sort; NQ=1 makes each slot a
+    group of its own, whose matrix's F row bands go to F blocks. An
+    out-of-range id gives a NaN table and leaves the others bit-equal."""
+    args = _t(*_grouping_case(pattern, NQ), device=cuda_device)
+    got = build_luts(*args)
+    torch.cuda.synchronize()
+    want = build_luts_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    bad = args[1].clone()
+    bad[NQ - 1, 0, 3] = -1
+    bad[0, 1, 0] = args[2].shape[1]
+    poisoned = build_luts(args[0], bad, *args[2:])
+    assert torch.isnan(poisoned[NQ - 1, 0, 3]).all()
+    assert torch.isnan(poisoned[0, 1, 0]).all()
+    poisoned[NQ - 1, 0, 3] = got[NQ - 1, 0, 3]
+    poisoned[0, 1, 0] = got[0, 1, 0]
+    torch.testing.assert_close(poisoned, got, rtol=0, atol=0)
+
+
+def test_all_clusters_entry_point_on_cpu():
+    """``build_luts_all_clusters`` is ``build_luts`` with every query
+    probing every cluster in order (the plain version on the CPU)."""
+    x2, _, Cs, Rs, mus, subs = _grouping_case("random", 3)
+    V = Cs.shape[1]
+    isel = np.broadcast_to(np.arange(V, dtype=np.int32), (3, 2, V)).copy()
+    want = build_luts(*_t(x2, isel, Cs, Rs, mus, subs))
+    got = build_luts_all_clusters(*_t(x2, Cs, Rs, mus, subs))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NQ", [1, 3, 64])
+def test_all_clusters_kernel_on_card(cuda_device, NQ):
+    """The all-clusters grouping (no sort: cluster v's slots are the
+    queries) against the plain version (rtol 1e-5, atol 1e-4), and
+    bit-equal to ``build_luts`` on the same ids (sorted, or at NQ=1 one
+    group a slot), whose slots take the same arithmetic."""
+    x2, _, Cs, Rs, mus, subs = _grouping_case("random", NQ)
+    V = Cs.shape[1]
+    isel = np.broadcast_to(np.arange(V, dtype=np.int32), (NQ, 2, V)).copy()
+    args = _t(x2, isel, Cs, Rs, mus, subs, device=cuda_device)
+    before = build_luts.launches
+    got = build_luts_all_clusters(args[0], *args[2:])
+    torch.cuda.synchronize()
+    assert build_luts.launches == before + 1
+    torch.testing.assert_close(got, build_luts_plain(*args), rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(got, build_luts(*args))

@@ -69,7 +69,7 @@ facade = fac.SearcherLOPQ(model=m, model_type="lopq", V=V, M=2 * F,
                           subquantizer_clusters=S, featurizer=object(),
                           indexer=kv, storer=store.MemoryStorer(),
                           reranking=True, rerank_nb=20,
-                          store_rerank_feats=True)
+                          store_rerank_feats=True, device="cpu")
 Xu = X / np.linalg.norm(X, axis=1, keepdims=True)
 facade.searcher.add_codes(m.predict_batch(Xu),
                           [f"s{i}" for i in range(500)], feats=Xu)

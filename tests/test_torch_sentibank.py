@@ -337,7 +337,9 @@ def test_model_pickled_on_cpu_loads_on_card(cuda_device):
                      rng.randn(2, V, Dh), rng.randn(2, F, S, Dh // F),
                      rng.randn(12, 2 * Dh), rng.randn(12), True,
                      device="cpu")
-    back = pickle.loads(pickle.dumps(m))
+    host = pickle.loads(pickle.dumps(m))
+    assert host.device.type == "cpu"          # unpickled on the host
+    back = host.to(cuda_device)                # placed as the facade does
     assert back.device.type == "cuda" and back.pca_P.device.type == "cuda"
     np.testing.assert_array_equal(back.Rs.cpu().numpy(), m.Rs.numpy())
     assert back.renorm is True
