@@ -30,9 +30,12 @@ D=128). Phases:
    and without rerank, single ``search`` calls, and the headline query
    (``lopq_query`` at a pinned B=64) — with the LUT kernel's launch count
    read around that run, and result checks;
-4. numbers: p50 latencies and the probe plan's cost constants;
-5. memory: each rung's peak device transients per query against the
-   searcher's wave model (``_bytes_per_query``);
+4. numbers: p50 latencies and the probe plan's cost constants, and one
+   32-query wave at a pinned B=256 (the sort-free wide square path) whose
+   selected cells, totals, n_cells and grid_ok must equal a plain sorted
+   walk of the same 256 x 256 region;
+5. memory: each rung's peak device transients per query (rung 256
+   included) against the searcher's wave model (``_bytes_per_query``);
 6. profile: a torch.profiler trace of one steady-state ``search_batch``
    wave with and without rerank: device busy time, idle share and the top
    ops (chrome traces in ``build/profile/``);
@@ -67,7 +70,24 @@ D=128). Phases:
    ``byPATH`` request: every answer has no error and the query image
    first; one coalesced wave's ids equal ``search_batch`` on the same fc7
    normalized on the host; ``lut_build`` must launch. A torch.profiler
-   trace of one 32-request wave gives device busy time and idle share.
+   trace of one 32-request wave gives device busy time and idle share;
+11. face (after the exhaustive phase, over its model and 8,388,608 rows):
+   ``lut_build`` against its plain version at the face probed shapes
+   (V=256, Dh=64, B=64; NQ 1 and 32, the probe lists of a real wave);
+   ``LOPQSearcherTorch`` waves of 32 on the default ladder (64, (128, 8),
+   256) and at a pinned ``probe_width=256`` (the wide square path), 4
+   queries' selection held to a plain sorted walk, the ms a wave at each
+   rung and the memory model at rung 256; natural escalation on an
+   8,192-row subset (below the quota, so the ladder must reach 256, and
+   those answers must equal the pinned-256 ones); the detector (8
+   ``face_synth`` scenes, the same boxes on the card and the CPU, ms an
+   image split into host pyramid, device, host NMS) and FaceResNet (card
+   vs CPU forward, ms at n = 1, 8, 32); and conf/conf_search_face_local
+   .json served over HTTP (``build_searcher``, 40 scenes through
+   ``GenericExtractor`` and ``load_codes``, then the index rows through
+   ``add_codes``, ``byB64`` from 1 and 32 clients and one ``byPATH``,
+   every query face found first as itself, one coalesced face wave equal
+   to sequential ``search_from_feats``, ``lut_build`` launched).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it. Run from the root of a checkout:
@@ -116,6 +136,20 @@ GOLDEN_RTOL, GOLDEN_ATOL = 2e-2, 2e-4
 FC7_RTOL, FC7_ATOL = 2e-3, 2e-3
 #: coalesced wave vs search_batch on host-normalized rows: distances
 SERVING_DIST_ATOL = 1e-4
+#: the face phase, over the exhaustive phase's face index (FACE): probed
+#: 32-query waves at quota 10,000 (the facade's quota at sim_limit 100),
+#: ``check`` queries held to a plain selection, natural escalation on a
+#: ``subset`` below the quota, the detector on ``det_scenes`` scenes, the
+#: embedder at ``embed_waves``, and conf/conf_search_face_local.json
+#: served over HTTP with ``scenes`` face_synth scenes indexed
+FACE_PHASE = dict(conf="conf/conf_search_face_local.json", wave=32,
+                  waves=3, quota=10_000, limit=100, check=4, subset=8192,
+                  det_scenes=8, embed_waves=(1, 8, 32), scenes=40, single=8,
+                  clients=32, rounds=2, parity=8, seed=0)
+#: FaceResNet card vs CPU forward (tests/test_torch_face.py); detector
+#: scores card vs CPU
+EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-4
+DET_SCORE_ATOL = 1e-4
 
 KERNELS = ("lut_build", "adc_scan")
 
@@ -416,7 +450,6 @@ def phase_kernel_check(dev, card, seed):
     from columbiaimagesearch_tpu_torch.index.lut import (
         build_luts,
         build_luts_all_clusters,
-        build_luts_plain,
     )
 
     g = torch.Generator(device=dev)
@@ -434,29 +467,43 @@ def phase_kernel_check(dev, card, seed):
         else:
             def fn(args=args):
                 return build_luts(*args)
-        got = fn()
-        torch.cuda.synchronize()
-        want = build_luts_plain(*args)
-        err = (got - want).abs()
-        max_abs = float(err.max())
-        max_rel = float((err / want.abs().clamp(min=1e-30)).max())
-        ok = bool(torch.allclose(got, want, rtol=LUT_RTOL, atol=LUT_ATOL))
-        k_ms = graph_ms(fn, 20)     # a call at NQ=1 is shorter than its launch
-        p_ms = kernel_ms(lambda: build_luts_plain(*args), 3, reps=1)
-        nbytes, flops, distinct = lut_work(args[1], V, Dh, F, S, Dh // F)
-        b_ms, by = bound_of(nbytes, flops)
-        log(f"kernel check: lut_build {label} (V={V} Dh={Dh} F={F} S={S} "
-            f"B={B}, {distinct} distinct probed matrices): max_abs_err="
-            f"{max_abs:.3e} max_rel_err={max_rel:.3e} (rtol {LUT_RTOL}, atol "
-            f"{LUT_ATOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-            f"{bound_text(k_ms, nbytes, flops)} library_ms=none (no single "
-            f"PyTorch call builds the tables: a residual, a batched "
-            f"rotation and a distance table) [{card}]")
-        if not ok:
-            raise AssertionError(f"lut_build disagrees with plain ({label})")
-        worst = max(worst, max_abs)
-        out[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        out[label] = _lut_check(label, fn, args, card)
+        worst = max(worst, out[label]["max_abs"])
     return worst, out
+
+
+def _lut_check(label, fn, args, card):
+    """``fn`` (a ``build_luts`` route on ``args``: x2, isel, Cs, Rs, mus,
+    subs) against ``build_luts_plain`` within LUT_RTOL/LUT_ATOL; its
+    device ms from a CUDA graph, the plain version's, the bound and the
+    share. Returns the numbers; raises if they disagree."""
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts_plain
+
+    NQ, _, B = args[1].shape
+    V, Dh = args[2].shape[1], args[2].shape[2]
+    F, S = args[5].shape[1], args[5].shape[2]
+    got = fn()
+    torch.cuda.synchronize()
+    want = build_luts_plain(*args)
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp(min=1e-30)).max())
+    ok = bool(torch.allclose(got, want, rtol=LUT_RTOL, atol=LUT_ATOL))
+    k_ms = graph_ms(fn, 20)     # a call at NQ=1 is shorter than its launch
+    p_ms = kernel_ms(lambda: build_luts_plain(*args), 3, reps=1)
+    nbytes, flops, distinct = lut_work(args[1], V, Dh, F, S, Dh // F)
+    b_ms, by = bound_of(nbytes, flops)
+    log(f"kernel check: lut_build {label} (NQ={NQ} V={V} Dh={Dh} F={F} "
+        f"S={S} B={B}, {distinct} distinct probed matrices): max_abs_err="
+        f"{max_abs:.3e} max_rel_err={max_rel:.3e} (rtol {LUT_RTOL}, atol "
+        f"{LUT_ATOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"{bound_text(k_ms, nbytes, flops)} library_ms=none (no single "
+        f"PyTorch call builds the tables: a residual, a batched "
+        f"rotation and a distance table) [{card}]")
+    if not ok:
+        raise AssertionError(f"lut_build disagrees with plain ({label})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                max_abs=max_abs, nbytes=nbytes, flops=flops)
 
 
 def _check_results(res, limit, what):
@@ -619,7 +666,22 @@ def phase_query_parity(dev, cfg, state):
 def phase_memory(dev, cfg, state, card):
     """Device transients of one wave per rung against the searcher's wave
     model: the peak allocation above the resident index, per query, must
-    not exceed ``_bytes_per_query`` (which sizes the wave cap)."""
+    not exceed ``_bytes_per_query`` (which sizes the wave cap). Rung 256
+    is a pinned ``probe_width=256``: the sort-free wide square path."""
+    out = {}
+    for rung, rnb in ((cfg["B"], None), ((128, 8), None),
+                      ((128, 8), cfg["rerank_nb"]), (256, None)):
+        out[f"rung={rung} rerank_nb={rnb}"] = wave_memory(
+            dev, state["searcher"], state["waves"][0], rung, rnb,
+            cfg["quota"], cfg["limit"], f"V={cfg['V']}", card)
+    return out
+
+
+def wave_memory(dev, s, X, rung, rnb, quota, limit, what, card):
+    """Peak device bytes per query of one wave of ``X`` through searcher
+    ``s``'s tables at ``rung`` (rerank depth ``rnb``) above what is
+    resident, against ``s._bytes_per_query``; fails if the model is
+    below it. Returns (measured, model)."""
     from columbiaimagesearch_tpu_torch.index.probe import rung_parts
     from columbiaimagesearch_tpu_torch.index.query import (
         lopq_query_orig,
@@ -628,45 +690,39 @@ def phase_memory(dev, cfg, state, card):
     )
     from columbiaimagesearch_tpu_torch.index.searcher import _query_geometry
 
-    s = state["searcher"]
     d = s._dev
+    V = s.model.V
     tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
               d["cell_start"], d["order"])
-    X = state["waves"][0]
     nq = X.shape[0]
-    out = {}
-    for rung, rnb in ((cfg["B"], None), ((128, 8), None),
-                      ((128, 8), cfg["rerank_nb"])):
-        _K, Q, K_stage, R, K_emit = _query_geometry(
-            cfg["quota"], cfg["limit"], s.nb_indexed, rnb)
-        B, SB = rung_parts(rung)
+    _K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, s.nb_indexed,
+                                                rnb)
+    B, SB = rung_parts(rung)
 
-        def wave():
-            if R:
-                o = lopq_query_rerank(X, d["feats"], *tables, cfg["quota"],
-                                      V=cfg["V"], B=B, Q=Q, K=K_stage, R=R,
-                                      K_out=K_emit, SB=SB)
-            else:
-                o = lopq_query_orig(X, *tables, cfg["quota"], V=cfg["V"],
-                                    B=B, Q=Q, K=K_stage, SB=SB)
-            return pack_query_out(*o).cpu()
+    def wave():
+        if R:
+            o = lopq_query_rerank(X, d["feats"], *tables, quota, V=V, B=B,
+                                  Q=Q, K=K_stage, R=R, K_out=K_emit, SB=SB)
+        else:
+            o = lopq_query_orig(X, *tables, quota, V=V, B=B, Q=Q, K=K_stage,
+                                SB=SB)
+        return pack_query_out(*o).cpu()
 
-        wave()                                  # library workspaces
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        wave()
-        torch.cuda.synchronize()
-        measured = (torch.cuda.max_memory_allocated(dev) - base) / nq
-        model = s._bytes_per_query(Q, rung, R)
-        label = f"rung={rung} rerank_nb={rnb}"
-        log(f"memory: {label}: peak transient {measured:.0f} B/query "
-            f"(wave of {nq}), model {model} B/query, "
-            f"model/measured={model / measured:.2f} [{card}]")
-        if measured > model:
-            raise AssertionError(f"memory model below measured at {label}")
-        out[label] = (measured, model)
-    return out
+    wave()                                      # library workspaces
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wave()
+    torch.cuda.synchronize()
+    measured = (torch.cuda.max_memory_allocated(dev) - base) / nq
+    model = s._bytes_per_query(Q, rung, R)
+    label = f"{what} rung={rung} rerank_nb={rnb}"
+    log(f"memory: {label}: peak transient {measured:.0f} B/query "
+        f"(wave of {nq}, Q={Q}), model {model} B/query, "
+        f"model/measured={model / measured:.2f} [{card}]")
+    if measured > model:
+        raise AssertionError(f"memory model below measured at {label}")
+    return measured, model
 
 
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -814,9 +870,87 @@ def phase_numbers(dev, cfg, state, card):
     out["brute_p50_ms_single_query"] = t_1
     out["BRUTE_NS_PER_ROW"] = per_row
     out["BRUTE_NS_FIXED"] = t_1 * 1e6 - nb * per_row
+    # A pinned probe_width=256 (B*B = 65,536 > 16,384, B < V): the
+    # sort-free wide square path, held to a plain selection.
+    Xw = batches[1][:32]
+    Qw, Kw = _geometry(s, cfg)
+    out["lopq_query_p50_ms_per_wave32_B256"] = float(np.median(time_ms(
+        lambda: lopq_query(Xw, *tables, cfg["quota"], V=V, B=256, Q=Qw,
+                           K=Kw), 5)))
+    wide_selection_check(s, Xw, cfg["quota"], 256, f"headline V={V}")
     for k, v in out.items():
         log(f"numbers: {k}={v!r} [{card}]")
     return out
+
+
+def plain_selection(s, X, quota, B):
+    """Per query of ``X``, the cells a plain walk over the B x B region of
+    searcher ``s``'s index selects: sort the region's cells by grid
+    distance, take cells until the quota (capped at the region's rows) is
+    covered, and include every cell tied with the crossing one (theta).
+    Coarse distances come from the query path's own ``_coarse_dists`` on
+    the same batch, so the grid values are bit-equal. Returns a list of
+    dicts: the occupied selected cells, total, n_cells (empty cells
+    included), grid_ok."""
+    from columbiaimagesearch_tpu_torch.index.query import _coarse_dists
+
+    d = s._dev
+    V = s.model.V
+    csl = d["cell_start"].long()
+    x2 = X.to(torch.float32).reshape(X.shape[0], 2, -1)
+    dists = [_coarse_dists(x2[:, h], d["Cs"][h]) for h in range(2)]
+    out = []
+    for i in range(X.shape[0]):
+        t0, i0 = torch.sort(dists[0][i], stable=True)
+        t1, i1 = torch.sort(dists[1][i], stable=True)
+        grid = (t0[:B, None] + t1[None, :B]).reshape(-1)
+        cells = (i0[:B, None] * V + i1[None, :B]).reshape(-1)
+        cnt = csl[cells + 1] - csl[cells]
+        order = torch.sort(grid, stable=True).indices
+        csum = cnt[order].cumsum(0)
+        quota_eff = min(int(quota), int(csum[-1]))
+        theta = grid[order[int((csum < quota_eff).sum())]]
+        sel = grid <= theta
+        out_min = (min(float(t0[B] + t1[0]), float(t0[0] + t1[B])) if B < V
+                   else float("inf"))
+        out.append(dict(cells=set(cells[sel & (cnt > 0)].tolist()),
+                        total=int(cnt[sel].sum()), n_cells=int(sel.sum()),
+                        grid_ok=float(theta) <= out_min))
+    return out
+
+
+def wide_selection_check(s, X, quota, B, what):
+    """``lopq_query`` at the square rung B (the sort-free wide path when
+    B*B > 16,384) against :func:`plain_selection` on ``X``: the same
+    occupied cells (those of the rows it returns, with Q and K large
+    enough that no candidate is clipped), total, n_cells and grid_ok."""
+    from columbiaimagesearch_tpu_torch.index.query import lopq_query
+    from columbiaimagesearch_tpu_torch.utils.chunking import round_up
+
+    d = s._dev
+    plain = plain_selection(s, X, quota, B)
+    Q = round_up(max(p["total"] for p in plain) + 1, 1024)
+    rows, _, total, n_cells, grid_ok = lopq_query(
+        X, d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
+        d["cell_start"], quota, V=s.model.V, B=B, Q=Q, K=Q)
+    csl = d["cell_start"].long()
+    for i, p in enumerate(plain):
+        r = rows[i][rows[i] >= 0]
+        cells = set((torch.searchsorted(csl, r, right=True) - 1).tolist())
+        got = (cells, int(total[i]), int(n_cells[i]), bool(grid_ok[i]))
+        if got != (p["cells"], p["total"], p["n_cells"], p["grid_ok"]):
+            raise AssertionError(
+                f"wide selection {what} B={B} query {i}: port total/n_cells/"
+                f"grid_ok {got[1:]} and {len(cells)} cells, plain "
+                f"{p['total']}/{p['n_cells']}/{p['grid_ok']} and "
+                f"{len(p['cells'])} cells")
+    log(f"wide selection: {what} B={B}, {len(plain)} queries: selected "
+        f"cells, total, n_cells and grid_ok equal to the plain sorted walk "
+        f"(totals {min(p['total'] for p in plain)}-"
+        f"{max(p['total'] for p in plain)}, n_cells "
+        f"{min(p['n_cells'] for p in plain)}-"
+        f"{max(p['n_cells'] for p in plain)}, grid_ok "
+        f"{sum(p['grid_ok'] for p in plain)}/{len(plain)})")
 
 
 def _scan_check(label, args, V, card, plain_iters=3):
@@ -1128,7 +1262,9 @@ def phase_exhaustive(dev, card):
         f"the tiled tables equal tile_luts(build_query_luts); "
         f"ExhaustiveADCSearcher equals ExhaustiveADC on {sub} rows")
     return dict(adc_launches=adc_launches, lut_launches=lut_launches,
-                max_abs=max_abs, face=face)
+                max_abs=max_abs, face=face,
+                index=dict(model=model, coarse=coarse, fine=fine, comp=comp,
+                           g=g))
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1580,6 +1716,480 @@ def phase_serving(dev, card, cfg=None):
             os.environ[WEIGHTS_ENV] = old_env
 
 
+def face_scene_png(seed):
+    """A ``face_synth`` scene (480x640, 1-3 identities of 3) as PNG."""
+    import io
+
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models.face_synth import make_scene
+
+    gray, _ = make_scene(seed, range(3 * seed, 3 * seed + 3))
+    b = io.BytesIO()
+    Image.fromarray(np.stack([gray.astype(np.uint8)] * 3, -1)).save(
+        b, format="PNG")
+    return b.getvalue()
+
+
+def _assert_same_rows(got, want, what):
+    """Per query, the same ids except swaps between rounding ties, and
+    distances within LUT_RTOL/LUT_ATOL."""
+    for q, ((rg, _), (rw, _)) in enumerate(zip(got, want)):
+        dg = np.array([r.dist for r in rg])
+        dw = np.array([r.dist for r in rw])
+        np.testing.assert_allclose(dg, dw, rtol=LUT_RTOL, atol=LUT_ATOL)
+        diff = np.array([r.id for r in rg]) != np.array([r.id for r in rw])
+        if (np.abs(dg - dw)[diff] > 1e-4 * np.maximum(1, dw[diff])).any():
+            raise AssertionError(f"{what} query {q}: ids differ beyond "
+                                 "rounding ties")
+
+
+def phase_face_probe(dev, card, index, cfg=None):
+    """Probed search over the face index (the exhaustive phase's seeded
+    model and rows, V=256): ``lut_build`` at the face shapes, waves on the
+    default ladder (64, (128, 8), 256) and at a pinned probe_width=256 (the
+    sort-free wide square path), its selection held to a plain sorted
+    walk, the ms a wave at each rung, the wave memory model at rung 256,
+    and natural escalation into rung 256 on a subset below the quota.
+    Returns the numbers and the main path's ``lut_build`` launches."""
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.index.probe import (
+        rung_cells,
+        rung_parts,
+    )
+    from columbiaimagesearch_tpu_torch.index.query import (
+        _ascending,
+        _coarse_dists,
+        lopq_query_orig,
+    )
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+        _query_geometry,
+    )
+
+    cfg = dict(FACE_PHASE, **(cfg or {}))
+    model, coarse, fine = index["model"], index["coarse"], index["fine"]
+    V, nq, q, lim = model.V, cfg["wave"], cfg["quota"], cfg["limit"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    waves = [mixture(nq, index["comp"], index["g"])
+             for _ in range(cfg["waves"])]
+    out = {}
+
+    # lut_build at the face probed shapes: the face model's tables and the
+    # probe lists (B=64) of a real wave
+    Dh = int(model.Cs.shape[2])
+    x2 = waves[0].reshape(nq, 2, Dh)
+    isel = torch.stack([_ascending(_coarse_dists(x2[:, h], model.Cs[h]),
+                                   64)[1] for h in range(2)], 1)
+    isel = isel.to(torch.int32)
+    for n in (1, nq):
+        args = (x2[:n].contiguous(), isel[:n].contiguous(), model.Cs,
+                model.Rs, model.mus, model.subs)
+        out[f"lut NQ={n}"] = _lut_check(
+            f"face probed NQ={n}", lambda a=args: build_luts(*a), args, card)
+
+    t0 = time.perf_counter()
+    s = LOPQSearcherTorch(model, capacity_hint=len(coarse))
+    s.add_codes((coarse, fine))
+    nb = s.get_nb_indexed()
+    sync()
+    log(f"face probe: LOPQSearcherTorch over {nb} face rows (V={V}, no "
+        f"feature store) in {time.perf_counter() - t0:.1f}s; ladder "
+        f"{s._probe_ladder()}")
+    build_luts.launches = 0                     # counts this path only
+    t0 = time.perf_counter()
+    ladder_res = [s.search_batch(w, quota=q, limit=lim, with_dists=True,
+                                 with_codes=False) for w in waves]
+    ladder_log = list(s.probe_stats.get("wave_log", []))
+    s.probe_width = 256
+    pinned_res = [s.search_batch(w, quota=q, limit=lim, with_dists=True,
+                                 with_codes=False) for w in waves]
+    s.probe_width = None
+    sync()
+    launches = build_luts.launches
+    log(f"face probe: {cfg['waves']} waves x {nq} on the default ladder "
+        f"(wave_log {ladder_log}) and {cfg['waves']} at probe_width=256 in "
+        f"{time.perf_counter() - t0:.2f}s; lut_build launches={launches}")
+    for i, res in enumerate(ladder_res + pinned_res):
+        _check_results(res, lim, f"face wave {i}")
+    wide_selection_check(s, waves[0][:cfg["check"]], q, 256, f"face V={V}")
+
+    d = s._dev
+    tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
+              d["cell_start"], d["order"])
+    _K, Q, K_stage, _R, _ = _query_geometry(q, lim, nb, None)
+    for rung in s._probe_ladder():
+        B, SB = rung_parts(rung)
+        it = iter(waves * 3)
+        ms = float(np.median(time_ms(lambda: lopq_query_orig(
+            next(it), *tables, q, V=V, B=B, Q=Q, K=K_stage, SB=SB), 5)))
+        out[f"rung {rung} ms/wave"] = ms
+        log(f"face probe: rung {rung} (G={rung_cells(rung, V)} cells): "
+            f"p50 {ms:.3f} ms a {nq}-query wave, {ms / nq:.4f} ms/query "
+            f"(CUDA events, Q={Q}) [{card}]")
+    out["memory"] = wave_memory(dev, s, waves[0], 256, None, q, lim,
+                                f"face V={V}", card)
+    del s
+
+    # Natural escalation: below the quota, a query stays on (128, 8) only
+    # if every row lies in its region, so the ladder must climb to 256.
+    sub = cfg["subset"]
+    ss = LOPQSearcherTorch(model)
+    ss.add_codes((coarse[:sub], fine[:sub]))
+    calls = []
+    chunk = ss._chunk_waves
+
+    def recording(run_tier, cap):
+        inner = chunk(run_tier, cap)
+
+        def run(idx, rung):
+            calls.append((rung, np.asarray(idx).copy()))
+            return inner(idx, rung)
+        return run
+    ss._chunk_waves = recording
+    Xe = waves[1]
+    natural = ss.search_batch(Xe, quota=q, limit=lim, with_dists=True,
+                              with_codes=False)
+    reached = {rung: idx for rung, idx in calls}
+    shares = {str(r): round(len(reached.get(r, ())) / nq, 3)
+              for r in ss._probe_ladder()}
+    log(f"face escalation: {sub} rows (quota {q}), one {nq}-query wave on "
+        f"the default ladder: share of queries reaching each rung {shares}; "
+        f"probe_stats {ss.probe_stats}")
+    top = reached.get(256)
+    if top is None or not len(top):
+        raise AssertionError("face escalation: no query reached rung 256")
+    ss.probe_width = 256
+    pinned = ss.search_batch(Xe, quota=q, limit=lim, with_dists=True,
+                             with_codes=False)
+    _assert_same_rows([natural[i] for i in top], [pinned[i] for i in top],
+                      "face escalation vs pinned 256")
+    out["escalation shares"] = shares
+    log(f"face escalation: the {len(top)} queries that reached rung 256 "
+        f"answer as the pinned-256 wave does ({lim} ids each)")
+    return out, launches
+
+
+def phase_face_models(dev, card, cfg=None):
+    """The detector and the embedder on the card against the CPU: the same
+    boxes (scores within DET_SCORE_ATOL) on ``det_scenes`` face_synth
+    scenes, with each image's time split into the host pyramid, the
+    device work (upload, HOG, score convolution, download) and the host
+    collection (threshold, NMS); FaceResNet's card forward against the CPU
+    forward on the same weights and chips (EMBED_RTOL/EMBED_ATOL), and
+    its ms at ``embed_waves``."""
+    import io
+
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models.face import (
+        FaceEmbedder,
+        extract_chip,
+        init_params,
+    )
+    from columbiaimagesearch_tpu_torch.models.face_detector import (
+        ConvHOGFaceDetector,
+    )
+
+    cfg = dict(FACE_PHASE, **(cfg or {}))
+    imgs = [np.asarray(Image.open(io.BytesIO(face_scene_png(1000 + i)))
+                       .convert("RGB")) for i in range(cfg["det_scenes"])]
+    det = ConvHOGFaceDetector(device=dev)
+    cpu = ConvHOGFaceDetector(device="cpu")
+    det.run(imgs[0])                            # library workspaces
+    t_pyr, t_dev, t_col, boxes_all, worst = [], [], [], [], 0.0
+    for img in imgs:
+        t0 = time.perf_counter()
+        levels = det.pyramid(img)
+        t1 = time.perf_counter()
+        smaps = det.score_maps(levels)
+        t2 = time.perf_counter()
+        boxes, scores = det.collect(levels, smaps)
+        t3 = time.perf_counter()
+        t_pyr.append((t1 - t0) * 1e3)
+        t_dev.append((t2 - t1) * 1e3)
+        t_col.append((t3 - t2) * 1e3)
+        wb, ws = cpu.run(img)
+        if not np.array_equal(np.asarray(boxes), np.asarray(wb)):
+            raise AssertionError("face detector: card and CPU boxes differ")
+        if len(scores):
+            worst = max(worst, float(np.abs(scores - ws).max()))
+        boxes_all.append(det.detect_from_img(img))
+    if worst > DET_SCORE_ATOL:
+        raise AssertionError(f"face detector: scores differ by {worst}")
+    n_boxes = sum(len(b) for b in boxes_all)
+    log(f"face detector: {len(imgs)} scenes 480x640 (upsampled x2, "
+        f"{len(levels)} pyramid levels): {n_boxes} boxes, equal on the card "
+        f"and the CPU, max score err {worst:.3e} (atol {DET_SCORE_ATOL}); "
+        f"ms an image p50: host pyramid {np.median(t_pyr):.2f}, device "
+        f"(upload, HOG, score conv, download) {np.median(t_dev):.2f}, host "
+        f"threshold+NMS {np.median(t_col):.2f} (host clock) [{card}]")
+    if not n_boxes:
+        raise AssertionError("face detector: no face found")
+
+    sd = init_params(seed=cfg["seed"])
+    emb = FaceEmbedder(params=sd, device=dev)
+    chips = np.stack([extract_chip(img, b) for img, bs in zip(imgs, boxes_all)
+                      for b in bs])
+    n_max = max(cfg["embed_waves"])
+    chips = np.resize(chips, (n_max,) + chips.shape[1:])
+    got = emb.featurize_chips(chips)
+    want = FaceEmbedder(params=sd, device="cpu").featurize_chips(chips)
+    err = float(np.abs(got - want).max())
+    log(f"face embedder: FaceResNet on {len(chips)} detected chips, card vs "
+        f"CPU forward on the same weights: max_abs_err={err:.3e} max |emb|="
+        f"{np.abs(want).max():.3e} (rtol {EMBED_RTOL}, atol {EMBED_ATOL})")
+    np.testing.assert_allclose(got, want, rtol=EMBED_RTOL, atol=EMBED_ATOL)
+    out = dict(detector=dict(pyramid=float(np.median(t_pyr)),
+                             device=float(np.median(t_dev)),
+                             collect=float(np.median(t_col))))
+    x = torch.from_numpy(chips.astype(np.float32)).to(dev)
+    for n in cfg["embed_waves"]:
+        ms = float(np.median(time_ms(lambda: emb.embed(x[:n]), 10,
+                                     warmup=2)))
+        out[f"embed n={n}"] = ms
+        log(f"face embedder: forward fp32 n={n} (normalize, 29 convs, fc): "
+            f"{ms:.4f} ms/wave, {ms / n:.4f} ms/chip (CUDA events, p50 of "
+            f"10) [{card}]")
+    return out
+
+
+def _check_face_reply(reply, sha1, what):
+    """No error; every detected face of the query image finds itself (the
+    same sha1 and box) first. Returns the number of faces."""
+    if "error" in reply or "Errors" in reply:
+        raise AssertionError(f"{what}: error in the response: {reply}")
+    for entry in reply["AllSimilarFaces"]:
+        block = entry["SimilarFaces"]
+        box = {k: entry["QueryFace"][k]
+               for k in ("left", "top", "right", "bottom")}
+        if (entry["QuerySha1"] != sha1 or not block["ImageSha1s"]
+                or block["ImageSha1s"][0] != sha1
+                or block["Faces"][0] != box):
+            raise AssertionError(f"{what}: face {box} of {sha1} came back "
+                                 f"first as {block['ImageSha1s'][:1]} "
+                                 f"{block['Faces'][:1]}")
+    return len(reply["AllSimilarFaces"])
+
+
+def phase_face_serving(dev, card, index, cfg=None):
+    """The face configuration (conf/conf_search_face_local.json as shipped)
+    served over HTTP: the face model in the storer, the facade from
+    ``common.factory.build_searcher``, ``scenes`` face_synth scenes
+    through ``GenericExtractor``, a KVIndexer update and ``load_codes``,
+    then the face index's rows through ``add_codes`` (no sqlite rows: they
+    keep their ADC distance in the host rerank); then
+    ``byB64`` from 1 and from ``clients`` concurrent clients and one
+    ``byPATH``. Returns the launch count and numbers."""
+    import io
+    import shutil
+    import threading
+
+    from columbiaimagesearch_tpu_torch.api.app import make_server
+    from columbiaimagesearch_tpu_torch.common.factory import (
+        build_indexer,
+        build_searcher,
+        build_storer,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.detector import (
+        FaceDetector,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        GenericExtractor,
+        build_extr_str,
+    )
+    from columbiaimagesearch_tpu_torch.imgio.imgio import (
+        get_buffer_from_B64,
+        get_SHA1_from_data,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.models.face import FaceEmbedder
+
+    cfg = dict(FACE_PHASE, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = os.path.join(ROOT, "build", "face_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t_phase = time.perf_counter()
+    try:
+        with open(os.path.join(ROOT, cfg["conf"])) as f:
+            conf = json.load(f)
+        conf["KVI_db_path"] = os.path.join(work, "cufacesearch.db")
+        conf["ST_base_path"] = os.path.join(work, "storer")
+        model = index["model"]
+        V, M, S = model.V, model.M, model.subquantizer_clusters
+        extr = build_extr_str("face", "face", "face")
+        key = f"{extr}_lopq-subq{S}-V{V}-M{M}"
+        build_storer(conf).save(key, model)
+        t0 = time.perf_counter()
+        facade = build_searcher(conf)
+        sync()
+        log(f"face serving: {cfg['conf']} -> build_searcher: model {key} "
+            f"from the storer, facade in {time.perf_counter() - t0:.2f}s")
+        if (facade.build_model_str() != key
+                or not isinstance(facade.detector, FaceDetector)
+                or not isinstance(facade.featurizer, FaceEmbedder)
+                or facade.model.device != dev
+                or facade.featurizer.device != dev
+                or facade.detector.model.device != dev):
+            raise AssertionError("face serving: the facade did not load the "
+                                 "face stack onto the card")
+        s = facade.searcher
+        # The faces go in first. A cell's rows keep insertion order, and
+        # a quota-crossing cell is clipped at Q candidate slots (the JAX
+        # slot semantics): this index's cells hold up to 32,768 rows, and
+        # bulk rows added first would fill the Q slots of the face cells.
+        bufs = [face_scene_png(2000 + i) for i in range(cfg["scenes"])]
+        sha1s = [get_SHA1_from_data(b) for b in bufs]
+        t0 = time.perf_counter()
+        extractor = GenericExtractor("face", "face", "face",
+                                     detector=facade.detector,
+                                     featurizer=facade.featurizer)
+        cols = extractor.process_batch([io.BytesIO(b) for b in bufs])
+        extract_s = time.perf_counter() - t0
+        kv = build_indexer(conf)
+        kv.push_dict_rows({sha1: dict(c, **{kv.get_col_imgurl():
+                                            f"img/{sha1}"})
+                           for sha1, c in zip(sha1s, cols)},
+                          kv.table_sha1infos_name)
+        uid, _ = kv.get_next_update_id(extr_type=extr)
+        kv.push_dict_rows({uid: {kv.get_col_listsha1s(): ",".join(sha1s)}},
+                          kv.table_updateinfos_name)
+        n_faces = sum(k.count("_") > 4 and not k.endswith("_processed")
+                      for c in cols for k in c)
+        added = facade.load_codes()
+        log(f"face serving: GenericExtractor over {len(bufs)} scenes "
+            f"({n_faces} faces) in {extract_s:.2f}s -> KVIndexer update -> "
+            f"load_codes added {added}")
+        t0 = time.perf_counter()
+        s.add_codes((index["coarse"], index["fine"]))
+        nb2 = s.get_nb_indexed()
+        sync()
+        log(f"face serving: {len(index['coarse'])} index rows through "
+            f"add_codes in {time.perf_counter() - t0:.1f}s; nb_indexed={nb2}")
+        if added != n_faces or nb2 != len(index["coarse"]) + n_faces:
+            raise AssertionError("face serving: the refresh did not index "
+                                 "the detected faces")
+        forms = [_form(base64.b64encode(b).decode()) for b in bufs]
+        scene0 = os.path.join(work, "scene0.png")
+        with open(scene0, "wb") as f:
+            f.write(bufs[0])
+
+        server = make_server(facade, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        build_luts.launches = 0                 # counts this path only
+        faces_checked = 0
+        try:
+            first_ms, reply = _post(port, "byB64", forms[0])
+            faces_checked += _check_face_reply(reply, sha1s[0], "first")
+            single, server_ms = [], []
+            for i in range(cfg["single"]):
+                j = (i + 1) % len(bufs)
+                ms, reply = _post(port, "byB64", forms[j])
+                faces_checked += _check_face_reply(reply, sha1s[j],
+                                                   f"1-client request {i}")
+                single.append(ms)
+                server_ms.append(reply["Timing"] * 1e3)
+            conc, n_c = [], cfg["clients"]
+            for r in range(cfg["rounds"]):
+                res, srv, errs = [None] * n_c, [None] * n_c, []
+                gate = threading.Event()
+
+                def client(i, r=r):
+                    gate.wait()
+                    j = (r * n_c + i) % len(bufs)
+                    try:
+                        ms, reply = _post(port, "byB64", forms[j])
+                        n = _check_face_reply(reply, sha1s[j], f"client {i}")
+                        res[i], srv[i] = (ms, n), reply["Timing"] * 1e3
+                    except Exception as inst:  # noqa: BLE001 — reported
+                        errs.append(inst)
+                ts = [threading.Thread(target=client, args=(i,))
+                      for i in range(n_c)]
+                for t in ts:
+                    t.start()
+                gate.set()
+                for t in ts:
+                    t.join(timeout=600)
+                if errs or any(t.is_alive() for t in ts):
+                    raise AssertionError(f"face serving: {n_c}-client round "
+                                         f"{r}: {errs[:3]}")
+                conc.extend(ms for ms, _ in res)
+                faces_checked += sum(n for _, n in res)
+                server_ms.extend(srv)
+            path_ms, reply = _post(port, "byPATH", _form(scene0))
+            faces_checked += _check_face_reply(reply, sha1s[0], "byPATH")
+            sync()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        launches = build_luts.launches
+        log(f"face serving: HTTP byB64 latency, 1 client: first "
+            f"{first_ms:.2f} ms, p50 {np.percentile(single, 50):.2f} ms p99 "
+            f"{np.percentile(single, 99):.2f} ms ({len(single)} requests); "
+            f"{n_c} clients: p50 {np.percentile(conc, 50):.2f} ms p99 "
+            f"{np.percentile(conc, 99):.2f} ms ({len(conc)} requests in "
+            f"{cfg['rounds']} rounds); reply Timing p50 "
+            f"{np.percentile(server_ms, 50):.2f} ms; byPATH {path_ms:.2f} ms; "
+            f"{faces_checked} query faces each found themselves first "
+            f"[{card}]")
+        log(f"face serving: probe_stats waves={s.probe_stats['waves']} "
+            f"escalated={s.probe_stats['escalated_queries']} wave_log="
+            f"{s.probe_stats.get('wave_log', [])[-6:]}; lut_build launches "
+            f"{launches}")
+        if launches <= 0:
+            raise AssertionError("face serving: lut_build never launched")
+        if not faces_checked:
+            raise AssertionError("face serving: no query face was checked")
+
+        # One coalesced face wave (every face of every request) against
+        # sequential search_from_feats; then where a request's time goes.
+        reqs, prep_ms = [], []
+        for j in range(cfg["parity"]):
+            t0 = time.perf_counter()
+            reqs.append(facade._prepare_request(
+                [base64.b64encode(bufs[j]).decode()],
+                facade.detector.detect_from_b64, {}, False))
+            prep_ms.append((time.perf_counter() - t0) * 1e3)
+        items = [(r["dets"], r["feats"], r["options"]) for r in reqs]
+        t0 = time.perf_counter()
+        multi = facade.search_from_feats_multi(items)
+        multi_ms = (time.perf_counter() - t0) * 1e3
+        seq_ms = []
+        for (dets, feats, opts), got in zip(items, multi):
+            t0 = time.perf_counter()
+            want = facade.search_from_feats(dets, feats, dict(opts))
+            seq_ms.append((time.perf_counter() - t0) * 1e3)
+            for g_, w_ in zip(got["AllSimilarFaces"], want["AllSimilarFaces"]):
+                gb, wb = g_["SimilarFaces"], w_["SimilarFaces"]
+                if (gb["ImageSha1s"] != wb["ImageSha1s"]
+                        or gb["Faces"] != wb["Faces"]):
+                    raise AssertionError("face serving: the coalesced wave "
+                                         "differs from search_from_feats")
+                np.testing.assert_allclose(gb["Distances"], wb["Distances"],
+                                           rtol=LUT_RTOL, atol=LUT_ATOL)
+        n_q = sum(len(r["feats"][0]) for r in reqs)
+        log(f"face serving: a coalesced wave of {len(reqs)} requests ({n_q} "
+            f"faces) equals sequential search_from_feats; per request p50: "
+            f"prepare (decode, detect, embed) {np.median(prep_ms):.2f} ms, "
+            f"search_from_feats (waves, host rerank, assembly) "
+            f"{np.median(seq_ms):.2f} ms; the coalesced wave {multi_ms:.2f} "
+            f"ms (host clock) [{card}]")
+        dets, feats, opts = items[0]
+        for line in host_profile(lambda: facade.search_from_feats(
+                dets, feats, dict(opts)), sync):
+            log(f"face serving: one request's search_from_feats, host {line}")
+        log(f"face serving: checks passed; phase "
+            f"{time.perf_counter() - t_phase:.1f}s")
+        return dict(launches=launches, single=single, conc=conc,
+                    server_ms=server_ms, prep_ms=prep_ms, seq_ms=seq_ms)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1612,17 +2222,28 @@ def main():
     serving = phase_serving(dev, card)
     torch.cuda.empty_cache()
     ex = phase_exhaustive(dev, card)
+    index = ex.pop("index")
+    torch.cuda.empty_cache()
+    face_probe, face_launches = phase_face_probe(dev, card, index)
+    phase_face_models(dev, card)
+    face_serving = phase_face_serving(dev, card, index)
+    del index
     log(f"launches: lut_build {launches} on the probed path + "
         f"{serving['launches']['lut']} on the serving path + "
-        f"{ex['lut_launches']} on the exhaustive path; adc_scan "
-        f"{ex['adc_launches']} on the exhaustive path")
+        f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
+        f"the face probed path + {face_serving['launches']} on the face "
+        f"serving path; adc_scan {ex['adc_launches']} on the exhaustive "
+        f"path")
+    worst = max([worst] + [r["max_abs"] for k, r in face_probe.items()
+                           if k.startswith("lut")])
     head, face = luts["headline NQ=100"], ex["face"][8]
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
         "launches": launches + serving["launches"]["lut"]
-        + ex["lut_launches"], "max_abs_err": worst,
+        + ex["lut_launches"] + face_launches + face_serving["launches"],
+        "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None}, {

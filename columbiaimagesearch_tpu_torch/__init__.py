@@ -6,7 +6,9 @@ and the exhaustive exact-ADC search in PyTorch, with both of the JAX
 package's TPU kernels hand-written in CUDA C++ for Hopper: the ADC
 lookup tables (``csrc/lut_build.cu``) and the exhaustive ADC scan
 (``csrc/adc_scan.cu``). It also serves: image -> DeepSentibank fc7, the
-fused raw-feature query, the ``SearcherLOPQ`` facade and the HTTP API.
+fused raw-feature query, the ``SearcherLOPQ`` facade and the HTTP API,
+and face search (conv-HOG detection -> 150x150 chips -> 128-d FaceResNet
+embeddings -> the probed query).
 It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
@@ -28,7 +30,10 @@ Layout (JAX counterpart in brackets):
   wrapper and plain version, ``ExhaustiveADC``, ``ExhaustiveADCSearcher``.
 - ``kernels/build.py`` [native/build.py]: nvcc build + ctypes loading.
 - ``models/`` [models/layers.py, preprocess.py, sentibank.py]: the fc7
-  featurizer; ``native/`` [native/build.py, imgpipe.py]: the host image
+  featurizer; [models/face.py, face_detector.py, face_dlib.py,
+  face_align.py, face_synth.py]: the face embedders, detector, aligner
+  and scene renderer (inference only); ``native/`` [native/build.py,
+  imgpipe.py]: the host image
   decoder; ``imgio/``, ``extraction/``, ``store/``, ``common/``,
   ``searcher/``, ``api/`` [the same names]: the serving stack.
 """

@@ -1,4 +1,5 @@
 from columbiaimagesearch_tpu_torch.extraction.detector import (
+    FaceDetector,
     GenericDetector,
     get_bbox_str,
     get_detector,

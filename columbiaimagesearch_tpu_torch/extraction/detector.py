@@ -1,9 +1,11 @@
 """Detector facades (port of columbiaimagesearch_tpu/extraction/detector.py:
-``GenericDetector`` :25-68, ``get_detector`` :76, ``get_bbox_str`` :87).
+``GenericDetector`` :25-68, ``FaceDetector`` :65-73, ``get_detector`` :76,
+``get_bbox_str`` :87).
 
 ``get_detector("full")`` is None: whole-image featurization, the release
-configuration. The face detectors are not ported yet (ROADMAP.md, still to
-port #13); asking for one raises ``NotImplementedError``.
+configuration. ``get_detector("face")`` (or its alias ``"dlib"``) is the
+conv-HOG detector of models/face_detector.py behind the buffer/URL/B64/file
+plumbing, on ``device`` (default: the first card; raises without one).
 """
 
 from columbiaimagesearch_tpu_torch.imgio.imgio import (
@@ -16,9 +18,6 @@ from columbiaimagesearch_tpu_torch.imgio.imgio import (
 
 DEFAULT_IMAGE_DL_TIMEOUT = 1
 DEFAULT_UPSAMPLING = 1
-
-FACES_NOT_PORTED = ("face detection and embedding are not ported yet "
-                    "(ROADMAP.md, still to port #13)")
 
 
 class GenericDetector:
@@ -63,11 +62,29 @@ class GenericDetector:
         raise NotImplementedError()
 
 
-def get_detector(detector_type):
+class FaceDetector(GenericDetector):
+    """The conv-HOG face detector behind the GenericDetector plumbing; it
+    fills the role of the reference's DLibFaceDetector."""
+
+    def __init__(self, model=None, device=None):
+        from columbiaimagesearch_tpu_torch.models.face_detector import (
+            ConvHOGFaceDetector,
+        )
+
+        self.model = (model if model is not None
+                      else ConvHOGFaceDetector(device=device))
+
+    def detect_from_img(self, img, up_sample=DEFAULT_UPSAMPLING):
+        return self.model.detect_from_img(img, up_sample=up_sample)
+
+
+def get_detector(detector_type, device=None):
     """Factory (reference: detector/utils.py:100-112): 'full' means no
-    detector (whole-image featurization); 'face'/'dlib' are not ported."""
+    detector (whole-image featurization). 'dlib' is accepted as an alias of
+    'face' for conf compatibility. ``device``: where the face detector
+    runs (default: the first card; raises without one)."""
     if detector_type in ("face", "dlib"):
-        raise NotImplementedError(FACES_NOT_PORTED)
+        return FaceDetector(device=device)
     elif detector_type == "full":
         return None
     raise ValueError(f"[get_detector: error] unknown 'detector' {detector_type}.")

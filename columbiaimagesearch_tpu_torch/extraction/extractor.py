@@ -3,19 +3,19 @@ columbiaimagesearch_tpu/extraction/extractor.py:1-219).
 
 Same column conventions as the reference
 (reference: cufacesearch/extractor/generic_extractor.py:17-24,165-255):
-extraction string ``<featurizer>_feat_<detector>_<input>`` and the
+extraction string ``<featurizer>_feat_<detector>_<input>``, per-bbox feature
+columns ``<col>:<extr>_<left>_<top>_<right>_<bottom>_<score>`` and the
 ``_processed`` / ``_failed`` markers; ``process_batch`` decodes on the
-host and runs one batched device forward for all images.
+host and runs one batched device forward for all images, or with a face
+detector one detection per image and one embedder forward for all chips.
 
-Differences from the JAX module: the face featurizer and detector are not
-ported yet (ROADMAP.md, still to port #13), so ``get_featurizer("dlib" /
-"face")`` and an extractor with a detector raise ``NotImplementedError``;
-and ``get_featurizer`` defaults to ``device_decode=False``, because the
-device JPEG decode is not ported either (still to port #10).
+Difference from the JAX module: ``get_featurizer`` defaults to
+``device_decode=False``, because the device JPEG decode is not ported
+(ROADMAP.md, still to port #10).
 """
 
 from columbiaimagesearch_tpu_torch.extraction.detector import (
-    FACES_NOT_PORTED,
+    get_bbox_str,
     get_detector,
 )
 from columbiaimagesearch_tpu_torch.extraction.featsio import (
@@ -45,9 +45,9 @@ def build_extr_str_failed(featurizer_type, detector_type, input_type):
 def get_featurizer(featurizer_type, params=None, device_decode=False,
                    device=None):
     """Factory (reference: featurizer/generic_featurizer.py:5-41).
-    ``device_decode=True`` raises: see the module docstring. ``device``:
-    where the featurizer runs (default: the first card; raises without
-    one)."""
+    ``device_decode=True`` raises for Sentibank: see the module docstring.
+    ``device``: where the featurizer runs (default: the first card; raises
+    without one)."""
     if featurizer_type in ("sbpycaffe", "sentibank"):
         from columbiaimagesearch_tpu_torch.models.sentibank import (
             SentibankFeaturizer,
@@ -57,7 +57,9 @@ def get_featurizer(featurizer_type, params=None, device_decode=False,
                                    device_decode=device_decode,
                                    device=device)
     elif featurizer_type in ("dlib", "face"):
-        raise NotImplementedError(FACES_NOT_PORTED)
+        from columbiaimagesearch_tpu_torch.models.face import FaceEmbedder
+
+        return FaceEmbedder(params=params, device=device)
     raise ValueError(f"[get_featurizer: error] unknown featurizer {featurizer_type}")
 
 
@@ -71,8 +73,7 @@ def get_feat_size(featurizer_type):
 
 
 class GenericExtractor:
-    """Featurizer -> output column dict per image (whole-image
-    extraction; see the module docstring for faces)."""
+    """Detector + featurizer -> output column dict per image."""
 
     def __init__(self, detector_type, featurizer_type, input_type="image",
                  extr_column="ext", detector=None, featurizer=None,
@@ -82,9 +83,7 @@ class GenericExtractor:
         self.input_type = input_type
         self.extr_column = extr_column
         self.detector = (detector if detector is not None
-                         else get_detector(detector_type))
-        if self.detector is not None:
-            raise NotImplementedError(FACES_NOT_PORTED)
+                         else get_detector(detector_type, device=device))
         self.featurizer = (featurizer if featurizer is not None
                            else get_featurizer(featurizer_type,
                                                device=device))
@@ -118,7 +117,7 @@ class GenericExtractor:
         outs = [self.init_out_dict() for _ in img_buffers]
         any_pixels = any(isinstance(b, _np.ndarray) for b in img_buffers)
 
-        if (any_pixels
+        if (self.detector is None and any_pixels
                 and not all(isinstance(b, _np.ndarray)
                             for b in img_buffers)
                 and hasattr(self.featurizer, "featurize_buffers")):
@@ -138,7 +137,8 @@ class GenericExtractor:
 
         # Fast path: encoded buffers go straight through the batched
         # decode pipeline.
-        if not any_pixels and hasattr(self.featurizer, "featurize_buffers"):
+        if (self.detector is None and not any_pixels
+                and hasattr(self.featurizer, "featurize_buffers")):
             raws = []
             for buf in img_buffers:
                 if hasattr(buf, "seek"):
@@ -190,6 +190,27 @@ class GenericExtractor:
                 outs[i] = self.failed_out_dict()
 
         if not ok:
+            return outs
+
+        if self.detector is not None:
+            # Detect per image (host pyramid and NMS), then embed ALL
+            # chips in one forward.
+            from columbiaimagesearch_tpu_torch.models.face import (
+                extract_chip,
+            )
+
+            all_chips, owners, all_dets = [], [], []
+            for j, i in enumerate(ok):
+                for det in self.detector.detect_from_img(imgs[j]):
+                    all_chips.append(extract_chip(imgs[j], det))
+                    owners.append(i)
+                    all_dets.append(det)
+            if all_chips:
+                feats = self.featurizer.featurize_chips(all_chips)
+                for feat, i, det in zip(feats, owners, all_dets):
+                    outs[i][self.extr_str_processed] = str(1)
+                    outs[i][f"{self.extr_str}_{get_bbox_str(det)}"] = \
+                        normfeatB64encode(feat.astype(dtype))
             return outs
 
         feats = self.featurizer.featurize_batch(imgs)

@@ -1,6 +1,6 @@
 """Probed LOPQ query in PyTorch, batched over queries (port of
-columbiaimagesearch_tpu/index/tpu_query.py:146-371, 519-618, 621-665,
-693-779, 971-1071).
+columbiaimagesearch_tpu/index/tpu_query.py:146-618, 621-665, 693-779,
+971-1071).
 
 The JAX ``lopq_query`` is a single-query program that the searcher vmaps;
 the port's functions take a wave ``X [NQ, D]`` and return per-query rows.
@@ -10,6 +10,8 @@ Per query:
    certificate prices);
 2. the probed cell region in multisequence visit order: the B x B square
    (sorted when B*B <= 16384), or the square plus SB-deep edge strips;
+   a wider square without strips takes the sort-free threshold path
+   (:func:`_wide_square_slots`);
 3. the quota prefix over the CSR buckets, resolved to Q candidate slots;
 4. ADC tables for the 2B probed clusters (the LUT kernel, index/lut.py),
    and per-candidate ADC as a gather-and-sum over them — on square rungs
@@ -26,9 +28,8 @@ The serving fast path takes raw features: :func:`fused_feat_query` and
 wave on the device, every norm guarded by ``max(norm, 1e-30)`` so the
 zero rows of a padded wave stay finite, then run the functions above.
 
-Not ported yet (they raise ``NotImplementedError``): the sort-free wide
-square path (B*B > 16384 without strips, tpu_query.py:372-518) and wide-V
-mode (``cell_start=None``).
+Not ported yet (it raises ``NotImplementedError``): wide-V mode
+(``cell_start=None``).
 """
 
 import numpy as np
@@ -96,6 +97,90 @@ def _half_dists(x_s, C_s, R_s, mu_s, sub_s, isel, slot, cc):
     return acc
 
 
+def _wide_square_slots(td0, td1, isel0, isel1, cell_start, quota, V, Q):
+    """Candidate slots of a B x B square too wide to sort per query, the
+    sort-free quota prefix of tpu_query.py:372-518.
+
+    theta is the smallest grid distance whose <=-weighted candidate count
+    reaches ``min(quota, total in the square)``: the distance of the
+    reference walk's quota-crossing cell, ties at theta included whole.
+    The JAX code finds it by a 31-step bisection on the f32 bit patterns;
+    here one sort of each query's grid values, with the cell counts
+    carried along, gives the same value (the first sorted position whose
+    cumulative count reaches the quota). Every grid row ``td0[a] + td1[:]``
+    is ascending, so per-row counts below and at theta are batched
+    ``searchsorted`` calls, and so is the slot -> (row, cell) map.
+
+    Slot layout as in the JAX path: interior cells (grid < theta) row-major
+    first, then the boundary cells (grid == theta) row-major, so the Q clip
+    can only drop boundary candidates and distance ties break the same way.
+
+    Region-sized tensors are dropped as soon as they are used, so the peak
+    stays within the searcher's wave memory model (``_bytes_per_query``).
+
+    :returns: (rows [NQ, Q] sorted-row ids, slot0/slot1 [NQ, Q] probed
+        ranks, total [NQ], n_cells [NQ], d_stop [NQ] = theta)
+    """
+    NQ, B = td0.shape
+    dev = td0.device
+    grid = td0[:, :, None] + td1[:, None, :]             # [NQ, B, B], rows up
+    cells = isel0[:, :, None] * V + isel1[:, None, :]
+    cnt = (cell_start[cells + 1] - cell_start[cells]).long()
+    del cells
+    # Candidates up to and including each cell of a row, plus the rows
+    # before it: one globally ascending table (int64), [NQ, B * B].
+    rowsum = cnt.sum(dim=2)                              # [NQ, B]
+    rowbase = rowsum.cumsum(dim=1) - rowsum              # exclusive
+    Pg = (cnt.cumsum(dim=2) + rowbase[:, :, None]).reshape(NQ, B * B)
+    quota_eff = torch.clamp(rowsum.sum(dim=1), max=int(quota))
+    gs, perm = torch.sort(grid.reshape(NQ, B * B), dim=1)
+    csum = cnt.reshape(NQ, B * B).gather(1, perm).cumsum(dim=1)
+    del cnt, perm
+    first = (csum < quota_eff[:, None]).sum(dim=1, keepdim=True)
+    d_stop = gs.gather(1, first.clamp(max=B * B - 1))    # [NQ, 1]
+    del gs, csum
+    theta = d_stop[:, :, None].expand(NQ, B, 1).contiguous()
+    kr = torch.searchsorted(grid, theta, right=True)[..., 0]    # <= theta
+    kl = torch.searchsorted(grid, theta, right=False)[..., 0]   # <  theta
+    del grid, theta
+    rowa = torch.arange(B, device=dev) * B
+
+    def prefix(k):
+        """Candidates in the first ``k`` cells of each row ([NQ, B])."""
+        at = Pg.gather(1, rowa + (k - 1).clamp(min=0))
+        return torch.where(k > 0, at - rowbase, 0)
+
+    c_all, c_int = prefix(kr), prefix(kl)
+    c_bnd = c_all - c_int
+    total = c_all.sum(dim=1)
+    n_cells = kr.sum(dim=1)
+    int_begin = c_int.cumsum(dim=1) - c_int
+    bnd_begin = (c_int.sum(dim=1, keepdim=True) + c_bnd.cumsum(dim=1)
+                 - c_bnd)
+    begins = torch.cat([int_begin, bnd_begin], dim=1)    # [NQ, 2B] ascending
+    j = torch.arange(Q, device=dev).expand(NQ, Q).contiguous()
+    # Virtual row (interior rows, then boundary rows): the last begin <= j;
+    # zero-count rows share their successor's begin and are skipped.
+    v_j = (torch.searchsorted(begins, j, right=True) - 1).clamp(min=0)
+    is_bnd = v_j >= B
+    a_j = torch.where(is_bnd, v_j - B, v_j).clamp(max=B - 1)
+    # Offset within row a_j's candidates: interior slots count from the
+    # row's first cell, boundary slots after its interior candidates.
+    base_off = (torch.where(is_bnd, c_int.gather(1, a_j), 0)
+                + (j - begins.gather(1, v_j)))
+    # Containing cell: the first b with P[a_j, b] > base_off, searched in
+    # the global table (rows before a_j never exceed rowbase[a_j]).
+    flat = torch.searchsorted(Pg, rowbase.gather(1, a_j) + base_off,
+                              right=True)
+    b_j = (flat - a_j * B).clamp(min=0, max=B - 1)
+    before = torch.where(
+        b_j > 0, Pg.gather(1, a_j * B + (b_j - 1).clamp(min=0))
+        - rowbase.gather(1, a_j), 0)
+    cid = isel0.gather(1, a_j) * V + isel1.gather(1, b_j)
+    rows = cell_start[cid].long() + (base_off - before)
+    return rows, a_j, b_j, total, n_cells, d_stop[:, 0]
+
+
 def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
                K, SB=0):
     """Probed ADC top-K for a wave of queries.
@@ -127,11 +212,6 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
     strips = SB > 0
     G = B * B
     sort_grid = G <= SORT_GRID_MAX_CELLS and not strips
-    if not (sort_grid or strips):
-        raise NotImplementedError(
-            f"square rung B={B} (B*B > {SORT_GRID_MAX_CELLS}) needs the "
-            "sort-free wide path, not ported yet (ROADMAP.md, still to "
-            "port #1)")
 
     # --- 1. coarse distances, top-B per split ------------------------------
     d0 = _coarse_dists(x2[:, 0], Cs[0])
@@ -161,50 +241,52 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
             out_grid_min = torch.full((NQ,), float("inf"), device=dev)
         isel0, isel1 = i0x[:, :B], i1x[:, :B]
 
-    # --- 2. probed cell region in multisequence visit order ----------------
-    if sort_grid:
-        grid = (td0[:, :, None] + td1[:, None, :]).reshape(NQ, G)
-        gsorted, perm = torch.sort(grid, dim=1, stable=True)
-        a_idx, b_idx = perm // B, perm % B          # slots into isel0/isel1
-        cells = isel0.gather(1, a_idx) * V + isel1.gather(1, b_idx)
-        starts = cell_start[cells].long()
-        counts = cell_start[cells + 1].long() - starts
-    else:
-        rg, cg = _strip_region(B, SB, SL, dev)
-        G = rg.shape[0]
-        gridf = td0f[:, rg] + td1f[:, cg]                     # [NQ, G]
-        cidf = i0f[:, rg] * V + i1f[:, cg]
-        startsf = cell_start[cidf].long()
-        cntf = cell_start[cidf + 1].long() - startsf
-        # Stable sort of the key plus payload gathers == the stable
-        # multi-payload lax.sort of tpu_query.py:356.
-        gsorted, perm = torch.sort(gridf, dim=1, stable=True)
-        counts = cntf.gather(1, perm)
-        starts = startsf.gather(1, perm)
-        a_idx, b_idx = rg[perm], cg[perm]           # ranks into i0f/i1f
-
-    # --- 3. ragged buckets -> fixed Q candidate slots ----------------------
-    csum = counts.cumsum(dim=1)
-    # Visit cells in order until the quota is covered; the crossing cell
-    # is included whole (reference get_result_quota semantics).
-    selected = (csum - counts) < quota
-    sel_counts = torch.where(selected, counts, 0)
-    scs = sel_counts.cumsum(dim=1)
-    total = scs[:, -1]
-    n_cells = selected.sum(dim=1)
-    d_stop = gsorted.gather(1, (n_cells - 1).clamp(min=0)[:, None])[:, 0]
-    grid_ok = d_stop <= out_grid_min
-    # Slot j belongs to the cell whose cumulative range covers j:
-    # #{cells i with scs[i] <= j}, as an integer scatter-add of cell-end
-    # markers plus a cumsum (deterministic on integers).
-    markers = torch.zeros((NQ, Q + 1), dtype=torch.int64, device=dev)
-    markers.scatter_add_(1, scs.clamp(max=Q), torch.ones_like(scs))
-    b_for_j = markers.cumsum(dim=1)[:, :Q].clamp(max=G - 1)
+    # --- 2+3. probed cell region -> fixed Q candidate slots ----------------
     j = torch.arange(Q, device=dev)[None, :]
-    bucket_begin = scs.gather(1, b_for_j) - sel_counts.gather(1, b_for_j)
-    rows = starts.gather(1, b_for_j) + (j - bucket_begin)
-    slot0 = a_idx.gather(1, b_for_j)
-    slot1 = b_idx.gather(1, b_for_j)
+    if sort_grid or strips:
+        if sort_grid:
+            grid = (td0[:, :, None] + td1[:, None, :]).reshape(NQ, G)
+            gsorted, perm = torch.sort(grid, dim=1, stable=True)
+            a_idx, b_idx = perm // B, perm % B      # slots into isel0/isel1
+            cells = isel0.gather(1, a_idx) * V + isel1.gather(1, b_idx)
+            starts = cell_start[cells].long()
+            counts = cell_start[cells + 1].long() - starts
+        else:
+            rg, cg = _strip_region(B, SB, SL, dev)
+            G = rg.shape[0]
+            gridf = td0f[:, rg] + td1f[:, cg]                 # [NQ, G]
+            cidf = i0f[:, rg] * V + i1f[:, cg]
+            startsf = cell_start[cidf].long()
+            cntf = cell_start[cidf + 1].long() - startsf
+            # Stable sort of the key plus payload gathers == the stable
+            # multi-payload lax.sort of tpu_query.py:356.
+            gsorted, perm = torch.sort(gridf, dim=1, stable=True)
+            counts = cntf.gather(1, perm)
+            starts = startsf.gather(1, perm)
+            a_idx, b_idx = rg[perm], cg[perm]       # ranks into i0f/i1f
+        csum = counts.cumsum(dim=1)
+        # Visit cells in order until the quota is covered; the crossing
+        # cell is included whole (reference get_result_quota semantics).
+        selected = (csum - counts) < quota
+        sel_counts = torch.where(selected, counts, 0)
+        scs = sel_counts.cumsum(dim=1)
+        total = scs[:, -1]
+        n_cells = selected.sum(dim=1)
+        d_stop = gsorted.gather(1, (n_cells - 1).clamp(min=0)[:, None])[:, 0]
+        # Slot j belongs to the cell whose cumulative range covers j:
+        # #{cells i with scs[i] <= j}, as an integer scatter-add of
+        # cell-end markers plus a cumsum (deterministic on integers).
+        markers = torch.zeros((NQ, Q + 1), dtype=torch.int64, device=dev)
+        markers.scatter_add_(1, scs.clamp(max=Q), torch.ones_like(scs))
+        b_for_j = markers.cumsum(dim=1)[:, :Q].clamp(max=G - 1)
+        bucket_begin = scs.gather(1, b_for_j) - sel_counts.gather(1, b_for_j)
+        rows = starts.gather(1, b_for_j) + (j - bucket_begin)
+        slot0 = a_idx.gather(1, b_for_j)
+        slot1 = b_idx.gather(1, b_for_j)
+    else:
+        rows, slot0, slot1, total, n_cells, d_stop = _wide_square_slots(
+            td0, td1, isel0, isel1, cell_start, quota, V, Q)
+    grid_ok = d_stop <= out_grid_min
     valid = j < total.clamp(max=Q)[:, None]
     rows = torch.where(valid, rows, 0)
 

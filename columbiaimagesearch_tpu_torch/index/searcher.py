@@ -464,7 +464,11 @@ class LOPQSearcherTorch:
         - coarse distances and, off the LUT route, the rotated residuals
           of every cluster: ~3 x [V, Dh] float32;
         - the probed region: grid, sort keys and permutation, cell ids,
-          counts, starts and prefix sums: ~14 int64-sized values per cell;
+          counts, starts and prefix sums: ~14 int64-sized values per cell
+          (the sort-free wide square path holds fewer at its peak: the
+          grid, counts, the global prefix table, the sort's values,
+          permutation and workspace, and the sorted counts' cumsum,
+          ~60 B a cell);
         - per candidate slot: slot metadata (~12 int64) plus the candidate
           codes and the gather indices and values (~20 B per code);
         - the LUT route's tables [2, B, F, S] float32, or the direct
@@ -477,7 +481,10 @@ class LOPQSearcherTorch:
         of a 100-query wave and fails if the model is below it. At 10.5M
         rows, V=4096, M=8, D=256, quota 10k on an NVIDIA H100 80GB HBM3
         at 700 W the model is 2.40x the measured peak at rung 64, 1.59x
-        at (128, 8) and 1.69x at (128, 8) with rerank_nb=1000.
+        at (128, 8) and 1.69x at (128, 8) with rerank_nb=1000. On the wide
+        square rung B=256 (G = 65,536) it is 2.17x at that size (V=4096,
+        wave of 100) and 2.97x on the face index (8,388,608 rows, V=256,
+        M=8, D=128, wave of 32), on the same card.
         """
         m = self.model
         V, M, Dh = m.V, m.M, int(m.Cs.shape[2])

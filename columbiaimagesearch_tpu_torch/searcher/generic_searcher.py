@@ -69,7 +69,7 @@ class GenericSearcher:
         else:
             from columbiaimagesearch_tpu_torch.extraction.detector import get_detector
 
-            self.detector = get_detector(detector_type)
+            self.detector = get_detector(detector_type, device=self.device)
         if featurizer is not None:
             self.featurizer = featurizer
         else:

@@ -18,7 +18,12 @@ Re-design of the reference's SearcherLOPQHBase
   with reranking on the device when the feature store is resident.
 
 Backends: ``LOPQSearcherTorch`` (the probed multi-index), or with
-``exact=True`` the port's ``ExhaustiveADCSearcher``. Not ported yet, each
+``exact=True`` the port's ``ExhaustiveADCSearcher``. The face
+configuration (``detector_type="face"``, ``featurizer_type="face"``,
+conf/conf_search_face_local.json) runs on the port's conv-HOG detector and
+FaceResNet embedder (models/face_detector.py, models/face.py): each
+detected face is a query of the wave, with ids ``<sha1>_<bbox>``. Not
+ported yet, each
 raising ``NotImplementedError`` (ROADMAP.md, still to port): training
 (``train_index``, ``train_at_init``; #12), ``sharded=True`` (#14),
 ``codestore_path`` (#6) and the bfloat16 rerank store

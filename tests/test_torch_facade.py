@@ -295,8 +295,15 @@ def test_unported_options_raise(store):
                             indexer=KVIndexer()), "#12")):
         with pytest.raises(NotImplementedError, match=match):
             SearcherLOPQ(**base, **kw)
-    with pytest.raises(NotImplementedError, match="#13"):
-        SearcherLOPQ(**dict(base, detector_type="face"))
+    # Faces are ported: detector_type="face" builds the conv-HOG detector
+    # on the facade's device.
+    from columbiaimagesearch_tpu_torch.extraction.detector import (
+        FaceDetector,
+    )
+
+    face = SearcherLOPQ(**dict(base, detector_type="face"))
+    assert isinstance(face.detector, FaceDetector)
+    assert face.detector.model.device.type == "cpu"
     assert SearcherLOPQ(**base, rerank_dtype="auto").searcher is None
 
 

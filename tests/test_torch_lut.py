@@ -127,6 +127,32 @@ def test_kernel_matches_plain_on_card(tables, cuda_device, NQ, Bq):
     torch.testing.assert_close(poisoned, got, rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("NQ", [1, 32])
+def test_kernel_at_face_probed_shapes_on_card(cuda_device, NQ):
+    """The face configuration's probed rung 64 (V=256, Dh=64, F=4, S=256,
+    B=64): kernel vs plain on the card, rtol 1e-5, atol 1e-4."""
+    rng = np.random.RandomState(NQ)
+    Vf, Dh, F, S, Bf = 256, 64, 4, 256, 64
+    Rs = np.stack([np.stack([np.linalg.qr(rng.randn(Dh, Dh))[0]
+                             for _ in range(Vf)]) for _ in range(2)])
+    args = _t(rng.randn(NQ, 2, Dh).astype(np.float32),
+              np.stack([np.stack([rng.choice(Vf, Bf, replace=False)
+                                  for _ in range(2)]) for _ in range(NQ)]
+                       ).astype(np.int32),
+              rng.randn(2, Vf, Dh).astype(np.float32), Rs.astype(np.float32),
+              0.1 * rng.randn(2, Vf, Dh).astype(np.float32),
+              rng.randn(2, F, S, Dh // F).astype(np.float32),
+              device=cuda_device)
+    before = build_luts.launches
+    got = build_luts(*args)
+    torch.cuda.synchronize()
+    assert build_luts.launches == before + 1
+    assert got.shape == (NQ, 2, Bf, F, S)
+    torch.testing.assert_close(got, build_luts_plain(*args), rtol=1e-5,
+                               atol=1e-4)
+
+
 def _grouping_case(pattern, NQ, Bq=8, Dh=32, F=4, S=32):
     """Inputs whose probed (split, cluster) groups take one shape:
     ``one-cluster`` (every slot of a split on one cluster: one group of

@@ -1,8 +1,9 @@
 """The port runs without JAX: a fresh interpreter imports every module of
 ``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
 exhaustive, the raw-feature fast path and one ``SearcherLOPQ`` facade
-search), and never loads ``jax``, ``flax``, the JAX package or pandas —
-nor PIL, which only the image routes import, lazily."""
+search), runs the face embedder and the detector's device half, and never
+loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
+the image routes import, lazily."""
 
 import os
 import subprocess
@@ -26,7 +27,10 @@ from columbiaimagesearch_tpu_torch import (api, common, extraction, imgio,
 from columbiaimagesearch_tpu_torch.api import app, microbatch, run_search_api
 from columbiaimagesearch_tpu_torch.common import factory
 from columbiaimagesearch_tpu_torch.extraction import extractor
-from columbiaimagesearch_tpu_torch.models import layers, preprocess, sentibank
+from columbiaimagesearch_tpu_torch.models import (face, face_align,
+                                                   face_detector, face_dlib,
+                                                   face_synth, layers,
+                                                   preprocess, sentibank)
 from columbiaimagesearch_tpu_torch.native import imgpipe
 from columbiaimagesearch_tpu_torch.searcher import (generic_searcher,
                                                     searcher_lopq)
@@ -75,6 +79,12 @@ facade.searcher.add_codes(m.predict_batch(Xu),
                           [f"s{i}" for i in range(500)], feats=Xu)
 out = facade.search_from_feats([("q", None)], [X[11]], {"max_returned": 3})
 assert out["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"][0] == "s11"
+emb = face.FaceEmbedder(device="cpu")
+e = emb.featurize_chips(np.zeros((1, 150, 150, 3), np.uint8))
+assert e.shape == (1, 128) and e.dtype == np.float64, e.shape
+smaps = face_detector.ConvHOGFaceDetector(device="cpu").score_maps(
+    [(np.zeros((96, 96), np.float32), 1.0, 1.0)])
+assert smaps[0].shape == (3, 3), smaps[0].shape
 assert lut.build_luts.launches == 0
 assert exhaustive_adc.adc_scan_all.launches == 0
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")

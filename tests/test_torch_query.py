@@ -173,13 +173,41 @@ def test_pack_unpack_roundtrip():
 
 @pytest.mark.parametrize("what", ["wide-square", "wide-V"])
 def test_unported_paths_raise(setup, what):
+    """Wide-V mode still raises. The wide square (B*B > 16384 without
+    strips) is ported: at V=B=130 it matches the JAX sort-free path
+    (tests/test_torch_wide_probe.py holds it at V=256)."""
     model, _, _, (tcodes, tcs, _), _, queries = setup
     X = torch.from_numpy(queries[:1])
-    if what == "wide-square":     # B*B > 16384 without strips, B < V
-        with pytest.raises(NotImplementedError, match="wide path"):
-            lopq_query(X, *_tables(model), tcodes, tcs, QUOTA, V=256,
-                       B=129, Q=QB, K=K)
-    else:
+    if what == "wide-V":
         with pytest.raises(NotImplementedError, match="wide-V"):
             lopq_query(X, *_tables(model), tcodes, None, QUOTA, V=V, B=8,
                        Q=QB, K=K)
+        return
+    import jax.numpy as jnp
+
+    from columbiaimagesearch_tpu.index.csr import build_csr_device
+    from columbiaimagesearch_tpu.index.tpu_query import lopq_query as jq
+
+    Vw, Mw, Sw, Dw = 130, 4, 16, 32
+    rng = np.random.RandomState(12)
+    wide = LOPQModel.from_numpy(*random_params(rng, V=Vw, M=Mw, S=Sw,
+                                               D=Dw), device="cpu")
+    coarse = rng.randint(0, Vw, (N, 2)).astype(np.int32)
+    fine = rng.randint(0, Sw, (N, Mw)).astype(np.uint8)
+    q = rng.randn(2, Dw).astype(np.float32)
+    wcodes, wcs, _ = build_csr(torch.from_numpy(coarse),
+                               torch.from_numpy(fine), Vw)
+    got = lopq_query(torch.from_numpy(q), *_tables(wide), wcodes, wcs, QUOTA,
+                     V=Vw, B=Vw, Q=QB, K=K)
+    jcodes, jcs, _ = build_csr_device(jnp.asarray(coarse), jnp.asarray(fine),
+                                      Vw)
+    for i in range(len(q)):
+        want = jq(jnp.asarray(q[i]), *(jnp.asarray(t.numpy())
+                                       for t in _tables(wide)),
+                  jcodes, jcs, jnp.asarray(QUOTA, jnp.int32), V=Vw, B=Vw,
+                  Q=QB, K=K)
+        assert int(got[2][i]) == int(want[2])
+        assert int(got[3][i]) == int(want[3])
+        assert bool(got[4][i]) == bool(want[4])
+        _assert_rows_match(np.asarray(want[0]), np.asarray(want[1]),
+                           got[0][i].numpy(), got[1][i].numpy())
