@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
 
-Drives the port's paths (``columbiaimagesearch_tpu_torch``) once each: the
-probed query path at the headline size of the JAX package's query
-benchmark (10,485,760 rows, V=4096, M=8, S=256, D=256, quota 10,000, limit
-100), the release model's PCA front end at its widths, and the exhaustive
-exact-ADC path at face-index scale (8,388,608 rows, V=256, M=8, S=256,
-D=128). Phases:
+Drives the port's paths (``columbiaimagesearch_tpu_torch``) once each:
+LOPQ training of the release and the face configurations at their conf
+sizes, then, on the trained models, the probed query path at the headline
+size of the JAX package's query benchmark (10,485,760 rows, V=4096, M=8,
+S=256, D=256, quota 10,000, limit 100), the release model's PCA front end,
+and the exhaustive exact-ADC path at face-index scale (8,388,608 rows,
+V=256, M=8, S=256, D=128). Phases:
 
 0. device: requires CUDA; prints the card's name and power limit;
 1. build: compiles ``csrc/lut_build.cu`` and ``csrc/adc_scan.cu`` with
@@ -24,12 +25,44 @@ D=128). Phases:
    bound (from this run's inputs: distinct
    probed matrices counted with ``torch.unique``) and share, and for the
    scan one ``embedding_bag`` on the same inputs (``library_ms``);
-3. main path: a seeded random model, the gaussian-mixture corpus encoded
-   with ``lopq_encode`` and indexed by ``LOPQSearcherTorch`` with a float32
+2a. train: the release configuration (conf/conf_search_production.json:
+   ``lopq_pca`` 4096 -> 256, V=4096, M=8, S=256) through
+   ``LOPQModelPCA.fit(n_init=1, random_state=0, pca_subsample=200000)``
+   on its ``nb_train`` 2,000,000 raw rows, made on the card: the
+   headline's 256-d gaussian mixture through a seeded orthonormal
+   [256, 4096] basis plus isotropic noise. Checks: ``pca_P`` spans the
+   basis (every principal cosine >= 0.999), every rotation is orthonormal,
+   and the mean subquantizer distortion on 262,144 held-out rows is below
+   a seeded random model's. Then the face configuration
+   (conf/conf_search_face_local.json: ``lopq``, V=256, 128-d, 500,000
+   rows of the face mixture) through ``LOPQModel.fit`` with the same
+   checks. Each prints its stage seconds (PCA, coarse seeding, coarse
+   Lloyd, accumulators, ``eigh``, allocation, projection, subquantizer
+   k-means) and peak device memory;
+2b. train card vs plain: Lloyd from one ``C_init`` at [262,144, 128],
+   V=4096 on the card and the CPU (after one iteration >= 99.99% equal
+   assignments and centroids within 1e-4; after 10 the inertia within
+   1e-3 relative); the face rotations against a float64 numpy ``eigh``
+   plus the copied allocation (``R cov R^T`` diagonal and equal to the
+   reference's eigenvalues in its allocation order, 1e-4 relative; a
+   cluster whose greedy allocation meets a near-tie follows the card's own
+   eigenvalues, and at most 3% may); and ``torch.linalg.eigh`` alone on
+   512 matrices of 128² and of 32² and on one 4096²;
+2c. train_index: ``build_searcher`` over the release conf with ``lopq``
+   at V=64 whose KVIndexer holds one update of 20,000 seeded 256-d
+   features trains at init on the card and saves the model; a second
+   ``build_searcher`` loads it and one query comes back first;
+3. main path: the trained release model's index-space tables, the PCA
+   image of raw rows drawn as in 2a (made a chunk at a time) encoded with
+   ``lopq_encode`` and indexed by ``LOPQSearcherTorch`` with a float32
    rerank store on the card, request waves through ``search_batch`` with
    and without rerank, single ``search`` calls, and the headline query
    (``lopq_query`` at a pinned B=64) — with the LUT kernel's launch count
-   read around that run, and result checks;
+   read around that run, and result checks; then recall@{1, 10, 100}
+   without rerank over 100 queries against the exact neighbours, for the
+   trained and a seeded model on the same 1,048,576-row sub-index (the
+   trained one may not fall more than 0.01 below at 100) and for the
+   trained model on the full index;
 4. numbers: p50 latencies and the probe plan's cost constants, and one
    32-query wave at a pinned B=256 (the sort-free wide square path) whose
    selected cells, totals, n_cells and grid_ok must equal a plain sorted
@@ -39,19 +72,21 @@ D=128). Phases:
 6. profile: a torch.profiler trace of one steady-state ``search_batch``
    wave with and without rerank: device busy time, idle share and the top
    ops (chrome traces in ``build/profile/``);
-7. pca: a ``LOPQModelPCA`` at the release widths (``pca_P [4096, 256]``)
-   over the headline model's tables: 262,144 raw rows through
+7. pca: the trained ``LOPQModelPCA`` (``pca_P [4096, 256]``): 262,144 raw
+   rows through
    ``add_data(store_feats=True)`` and a 100-query rerank wave, held equal
    to a plain-model searcher given the projected rows and queries;
 8. exhaustive: the face-search configuration (conf/conf_search_face_local
-   .json, 128-d embeddings) with a seeded model, 8,388,608 rows through
+   .json, 128-d embeddings) with the trained face model, 8,388,608 rows
+   of the face mixture through
    ``ExhaustiveADC`` (scan kernel vs plain at NQ=8 on that index, then
    ``search_batch`` at nq 8 and 64, k=100, with the LUT and scan kernels'
    launch counts read around it; the tiled tables of ``search_batch``
    equal to ``tile_luts(build_query_luts)``, and 4 queries of each nq
    held to a selection on the plain distances), a torch.profiler trace
    of one launch at each nq, and ``ExhaustiveADCSearcher`` on a
-   100,000-row subset.
+   20,000-row subset (the trained model spreads rows over the cells, so
+   a larger subset pads past the layout's 8x guard).
    The headline state is freed first;
 9. fc7: DeepSentibank on the card — the golden fc7 of
    ``tests/data/grace_hopper.jpg`` (deterministic Caffe blobs, the
@@ -60,8 +95,8 @@ D=128). Phases:
    forward's time per wave at n = 1, 8, 32 in float32 and bfloat16;
 10. serving: the release configuration (conf/conf_search_production.json:
    ``lopq_pca`` 4096 -> 256, V=4096, M=8, rerank on with the device store,
-   coalescing 4 ms / 32). The model (the headline's tables plus a seeded
-   orthonormal ``pca_P``) goes into the port's storer, the facade comes
+   coalescing 4 ms / 32). The trained release model goes into the port's
+   storer, the facade comes
    from ``common.factory.build_searcher``, 10,485,760 index-space rows go
    in through ``add_codes(..., feats=...)``, and the fc7 of seeded images
    and of grace_hopper.jpg, extracted by ``GenericExtractor``, arrive
@@ -83,14 +118,16 @@ D=128). Phases:
    ``face_synth`` scenes, the same boxes on the card and the CPU, ms an
    image split into host pyramid, device, host NMS) and FaceResNet (card
    vs CPU forward, ms at n = 1, 8, 32); and conf/conf_search_face_local
-   .json served over HTTP (``build_searcher``, 40 scenes through
+   .json served over HTTP (``build_searcher``, 36 scenes through
    ``GenericExtractor`` and ``load_codes``, then the index rows through
    ``add_codes``, ``byB64`` from 1 and 32 clients and one ``byPATH``,
    every query face found first as itself, one coalesced face wave equal
    to sequential ``search_from_feats``, ``lut_build`` launched).
 
-The last line is ``{"ok": true, "device": {...}}``; any failure raises and
-exits non-zero before it. Run from the root of a checkout:
+Before the ``kernels`` line, a ``{"train": {...}}`` line carries the stage
+seconds, the checks' numbers, the recalls, and the card's name and power
+limit. The last line is ``{"ok": true, "device": {...}}``; any failure
+raises and exits non-zero before it. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -118,16 +155,16 @@ HEADLINE = dict(rows=10_485_760, train=262_144, V=4096, M=8, S=256, D=256,
 #: 128-d embeddings, columbiaimagesearch_tpu/models/face.py:25) at 128 V^2
 #: rows, the regime columbiaimagesearch_tpu/index/pallas_adc.py:18-20 names
 FACE = dict(rows=8_388_608, train=262_144, V=256, M=8, S=256, D=128, k=100,
-            nqs=(8, 64), subset=100_000, seed=0)
+            nqs=(8, 64), subset=20_000, seed=0)
 #: the release model's PCA widths (conf/conf_search_production.json)
-PCA = dict(raw_dim=4096, rows=262_144, wave=100, seed=0)
-#: the serving phase: the release configuration over the headline's
-#: 10,485,760 index rows (the index-space rows go in through add_codes: 10.5M
-#: base64 4096-d features do not go through sqlite), plus ``images`` seeded
-#: JPEGs and grace_hopper.jpg through a KVIndexer update
+PCA = dict(rows=262_144, wave=100)
+#: the serving phase: the trained release model over the headline's
+#: 10,485,760 index rows (the PCA image of raw rows; they go in through
+#: add_codes: 10.5M base64 4096-d features do not go through sqlite), plus
+#: ``images`` seeded JPEGs and grace_hopper.jpg through a KVIndexer update
 SERVING = dict(conf="conf/conf_search_production.json", rows=10_485_760,
-               train=262_144, images=40, single=16, clients=32, rounds=3,
-               seed=0, overrides={})
+               images=40, single=16, clients=32, rounds=3, seed=0,
+               overrides={})
 #: DeepSentibank forward timing: wave sizes, and the golden fc7 tolerance
 #: (tests/test_sentibank_weights.py:121); card vs CPU forward tolerance
 #: (tests/test_sentibank.py:106)
@@ -141,11 +178,18 @@ SERVING_DIST_ATOL = 1e-4
 #: ``check`` queries held to a plain selection, natural escalation on a
 #: ``subset`` below the quota, the detector on ``det_scenes`` scenes, the
 #: embedder at ``embed_waves``, and conf/conf_search_face_local.json
-#: served over HTTP with ``scenes`` face_synth scenes indexed
+#: served over HTTP with ``scenes`` face_synth scenes indexed: ``single``
+#: requests from one client and ``rounds`` of ``clients`` concurrent ones
+#: (on the trained face model the host rerank takes ~3.4 s a request, so
+#: one round of 32 is ~90 s of the run). 36 scenes hold 886 faces, fewer
+#: than the conf's rerank_nb of 1,000: the random embedder puts every face
+#: in one tight cluster (squared distances ~1e-3) that ADC cannot order,
+#: so with more faces than rerank_nb a query face can miss the exact
+#: rerank and another face come back first (40 scenes, 1,056 faces did)
 FACE_PHASE = dict(conf="conf/conf_search_face_local.json", wave=32,
                   waves=3, quota=10_000, limit=100, check=4, subset=8192,
-                  det_scenes=8, embed_waves=(1, 8, 32), scenes=40, single=8,
-                  clients=32, rounds=2, parity=8, seed=0)
+                  det_scenes=8, embed_waves=(1, 8, 32), scenes=36, single=4,
+                  clients=32, rounds=1, parity=8, seed=0)
 #: FaceResNet card vs CPU forward (tests/test_torch_face.py); detector
 #: scores card vs CPU
 EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-4
@@ -390,6 +434,472 @@ def make_model(train, V, M, S, g):
     return LOPQModel(Cs, Rs, mus, subs, device=dev)
 
 
+# ------------------------------------------------------------- training
+
+#: the training phase: the release configuration (``conf``: lopq_pca
+#: 4096 -> 256, V=4096, M=8, S=256, nb_train 2,000,000, nb_train_pca
+#: 200,000) on raw rows that are the headline's 256-d gaussian mixture
+#: mapped through a seeded orthonormal [256, raw_dim] basis plus isotropic
+#: ``noise`` (so PCA has a known answer), and the face configuration
+#: (``face_conf``: lopq, V=256, M=8, S=256, nb_train 500,000) on the face
+#: mixture; ``heldout`` rows for the distortion checks, Lloyd card vs CPU
+#: on ``lloyd_rows`` x Dh from one ``C_init``, recall over ``queries``
+#: queries that are indexed rows plus ``query_noise`` N(0, I) (as
+#: scripts/eval_recall.py makes them; 0.3 is the rows' own noise around
+#: their component, where 0.1 left both models at recall 1.0 in a CPU
+#: trial) on a ``sub_rows`` sub-index, and
+#: ``train_index`` through the facade on ``index_rows`` seeded features at
+#: V=``index_V``
+TRAIN = dict(conf="conf/conf_search_production.json",
+             face_conf="conf/conf_search_face_local.json", raw_dim=4096,
+             noise=0.01, heldout=262_144, lloyd_rows=262_144, lloyd_iters=10,
+             queries=100, query_noise=0.3, sub_rows=1 << 20,
+             index_rows=20_000, index_V=64, seed=0, overrides={},
+             face_overrides={})
+#: card vs plain: Lloyd after one iteration (share of equal assignments,
+#: centroid max abs), after all iterations (inertia, relative)
+LLOYD_AGREE, LLOYD_C_ATOL, LLOYD_INERTIA_RTOL = 0.9999, 1e-4, 1e-3
+#: rotations against a float64 eigh (relative to each cluster's largest
+#: eigenvalue), with at most a ROT_MAX_TIES share of clusters whose greedy
+#: allocation meets a near-tie; rotations orthonormal; PCA cosines
+ROT_RTOL, ROT_MAX_TIES, ORTHO_ATOL, PCA_COS_MIN = 1e-4, 0.03, 1e-4, 0.999
+RECALL_SLACK = 0.01
+
+
+def raw_source(dev, latent_dim, raw_dim, noise, seed):
+    """The raw rows' generator: the mixture's components, a seeded
+    orthonormal [latent_dim, raw_dim] basis (rows), the noise level."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 11)
+    comp = torch.randn(256, latent_dim, generator=g, device=dev)
+    comp /= comp.norm(dim=1, keepdim=True)
+    basis = torch.linalg.qr(torch.randn(raw_dim, latent_dim, generator=g,
+                                        device=dev))[0].T.contiguous()
+    return dict(comp=comp, basis=basis, noise=noise, g=g)
+
+
+def raw_rows(n, src, chunk=1 << 18):
+    """``n`` raw rows: a mixture row through the basis plus noise."""
+    basis = src["basis"]
+    out = torch.empty((n, basis.shape[1]), dtype=torch.float32,
+                      device=basis.device)
+    for lo in range(0, n, chunk):
+        o = out[lo:lo + chunk]
+        o.normal_(0.0, src["noise"], generator=src["g"])
+        o.addmm_(mixture(o.shape[0], src["comp"], src["g"]), basis)
+    return out
+
+
+def index_rows(n, src, model, chunk=1 << 18):
+    """The PCA image of ``n`` fresh raw rows under ``model``, made a
+    chunk at a time (the raw rows never exist whole)."""
+    out = torch.empty((n, model.pca_P.shape[1]), dtype=torch.float32,
+                      device=model.device)
+    for lo in range(0, n, chunk):
+        out[lo:lo + chunk] = model.apply_PCA(
+            raw_rows(min(chunk, n - lo), src))
+    return out
+
+
+class StageClock:
+    """Seconds of each training stage, read by wrapping the training
+    modules' functions while ``patched()`` is open; each wrapper
+    synchronises the card before and after the stage it times."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.seconds = {}
+        self.kind = "coarse"
+
+    def _timed(self, name, fn):
+        def run(*a, **k):
+            self.sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.sync()
+                key = name() if callable(name) else name
+                self.seconds[key] = (self.seconds.get(key, 0.0)
+                                     + time.perf_counter() - t0)
+        return run
+
+    def patched(self):
+        import contextlib
+
+        from columbiaimagesearch_tpu_torch.index import model as mm
+        from columbiaimagesearch_tpu_torch.ops import kmeans as km
+        from columbiaimagesearch_tpu_torch.ops import rotations as rm
+
+        calls = itertools.count()
+        real_auto = mm.fit_kmeans_auto
+
+        def auto(*a, **k):           # the first two runs are the coarse ones
+            self.kind = "coarse" if next(calls) < 2 else "subquantizer"
+            return real_auto(*a, **k)
+
+        def stage(coarse):
+            return lambda: (coarse if self.kind == "coarse"
+                            else "subquantizer k-means")
+
+        stack = contextlib.ExitStack()
+        for mod, name, fn in (
+                (mm, "train_pca", self._timed("pca", mm.train_pca)),
+                (mm, "_apply_pca", self._timed("pca apply", mm._apply_pca)),
+                (mm, "fit_kmeans_auto", auto),
+                (km, "kmeans_plusplus_init", self._timed(
+                    stage("coarse seeding"), km.kmeans_plusplus_init)),
+                (km, "_lloyd", self._timed(stage("coarse Lloyd"),
+                                           km._lloyd)),
+                (rm, "accumulate_covariance_estimators", self._timed(
+                    "accumulators", rm.accumulate_covariance_estimators)),
+                (rm, "_eigh", self._timed("eigh", rm._eigh)),
+                (rm, "eigenvalue_allocation_batch", self._timed(
+                    "allocation", rm.eigenvalue_allocation_batch)),
+                (mm, "project_residuals_to_local", self._timed(
+                    "projection", mm.project_residuals_to_local))):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        return stack
+
+
+def _fit_timed(fit, sync, dev):
+    """``fit()`` under a StageClock: (model, stage seconds with ``total``
+    and ``other``, peak device GB)."""
+    clock = StageClock(sync)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with clock.patched():
+        model = fit()
+        sync()
+    total = time.perf_counter() - t0
+    stages = {k: round(v, 3) for k, v in clock.seconds.items()}
+    stages["other"] = round(total - sum(clock.seconds.values()), 3)
+    stages["total"] = round(total, 3)
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    return model, stages, peak
+
+
+def _check_trained(model, heldout, seeded, what):
+    """Orthonormal rotations, and a mean subquantizer distortion on
+    held-out rows below the seeded model's. Returns the two distortions."""
+    from columbiaimagesearch_tpu_torch.index.eval import (
+        get_subquantizer_distortion,
+    )
+
+    Dh = model.Rs.shape[-1]
+    eye = torch.eye(Dh, device=model.device)
+    ortho = max(float((torch.bmm(R, R.transpose(1, 2)) - eye).abs().max())
+                for R in model.Rs)
+    if not ortho <= ORTHO_ATOL:
+        raise AssertionError(f"{what}: rotations not orthonormal "
+                             f"(max |R R^T - I| = {ortho:.3e})")
+    dist = float(np.mean(get_subquantizer_distortion(heldout, model)))
+    dist_seeded = float(np.mean(get_subquantizer_distortion(heldout,
+                                                            seeded)))
+    if not dist < dist_seeded:
+        raise AssertionError(f"{what}: trained distortion {dist:.5f} is not "
+                             f"below the seeded model's {dist_seeded:.5f}")
+    return dict(ortho_max=ortho, distortion=dist,
+                distortion_seeded=dist_seeded)
+
+
+def phase_train(dev, card, cfg=None):
+    """Train the release configuration (LOPQModelPCA.fit, as train_index
+    calls it) and the face configuration (LOPQModel.fit) on the card at
+    their conf sizes; check the PCA subspace, the rotations and the
+    distortion against a seeded model. Returns the trained models, their
+    data sources and the numbers."""
+    from columbiaimagesearch_tpu_torch.index.model import (
+        LOPQModel,
+        LOPQModelPCA,
+    )
+
+    cfg = dict(TRAIN, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with open(os.path.join(ROOT, cfg["conf"])) as f:
+        conf = dict(json.load(f), **cfg["overrides"])
+    V, M = int(conf["SEARCHLOPQ_lopq_V"]), int(conf["SEARCHLOPQ_lopq_M"])
+    S = int(conf["SEARCHLOPQ_lopq_subq"])
+    D = int(conf["SEARCHLOPQ_lopq_pcadims"])
+    n, n_pca = int(conf["SEARCHLOPQ_nb_train"]), int(
+        conf["SEARCHLOPQ_nb_train_pca"])
+    src = raw_source(dev, D, cfg["raw_dim"], cfg["noise"], cfg["seed"])
+    t0 = time.perf_counter()
+    raw = raw_rows(n, src)
+    sync()
+    make_s = time.perf_counter() - t0
+    model, stages, peak = _fit_timed(lambda: LOPQModelPCA.fit(
+        raw, pca_dims=D, n_init=1, random_state=0, pca_subsample=n_pca,
+        V=V, M=M, subquantizer_clusters=S, device=dev), sync, dev)
+    del raw
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"train: release {cfg['conf']} (lopq_pca {cfg['raw_dim']} -> {D}, "
+        f"V={V} M={M} S={S}): {n} raw rows made on the card in "
+        f"{make_s:.2f}s; LOPQModelPCA.fit(n_init=1, random_state=0, "
+        f"pca_subsample={n_pca}) stage seconds {stages}; peak device "
+        f"memory {peak if peak is None else round(peak, 2)} GB; "
+        f"linalg {torch.backends.cuda.preferred_linalg_library()} [{card}]")
+    cos = torch.linalg.svdvals(src["basis"] @ model.pca_P)
+    if not float(cos.min()) >= PCA_COS_MIN:
+        raise AssertionError(f"train: pca_P does not span the basis "
+                             f"(least principal cosine {float(cos.min())})")
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 12)
+    base = LOPQModel(model.Cs, model.Rs, model.mus, model.subs, device=dev)
+    seeded = make_model(index_rows(HEADLINE["train"], src, model), V, M, S,
+                        g)
+    heldout = index_rows(cfg["heldout"], src, model)
+    rel = _check_trained(base, heldout, seeded, "train: release")
+    rel.update(stages=stages, peak_gb=peak, rows=n, pca_rows=n_pca,
+               pca_cos_min=float(cos.min()))
+    log(f"train: release checks passed: pca_P spans the basis (least "
+        f"principal cosine {rel['pca_cos_min']:.6f}), rotations orthonormal "
+        f"(max |R R^T - I| {rel['ortho_max']:.2e}), mean subquantizer "
+        f"distortion on {cfg['heldout']} held-out rows {rel['distortion']:.5f}"
+        f" < seeded {rel['distortion_seeded']:.5f}")
+
+    # The face configuration (no PCA) on the face mixture.
+    with open(os.path.join(ROOT, cfg["face_conf"])) as f:
+        fconf = dict(json.load(f), **cfg["face_overrides"])
+    fV, fM = int(fconf["SEARCHLOPQ_lopq_V"]), int(fconf["SEARCHLOPQ_lopq_M"])
+    fS, fn = int(fconf["SEARCHLOPQ_lopq_subq"]), int(
+        fconf["SEARCHLOPQ_nb_train"])
+    fg = torch.Generator(device=dev)
+    fg.manual_seed(FACE["seed"] + 7)
+    fcomp = torch.randn(256, FACE["D"], generator=fg, device=dev)
+    fcomp /= fcomp.norm(dim=1, keepdim=True)
+    ftrain = mixture(fn, fcomp, fg)
+    fmodel, fstages, fpeak = _fit_timed(lambda: LOPQModel.fit(
+        ftrain, n_init=1, random_state=0, V=fV, M=fM,
+        subquantizer_clusters=fS, device=dev), sync, dev)
+    fseeded = make_model(mixture(FACE["train"], fcomp, fg), fV, fM, fS, fg)
+    face = _check_trained(fmodel, mixture(cfg["heldout"], fcomp, fg),
+                          fseeded, "train: face")
+    face.update(stages=fstages, peak_gb=fpeak, rows=fn)
+    log(f"train: face {cfg['face_conf']} (lopq, V={fV} M={fM} S={fS}, "
+        f"D={FACE['D']}): LOPQModel.fit on {fn} rows, stage seconds "
+        f"{fstages}; peak {fpeak if fpeak is None else round(fpeak, 2)} GB; "
+        f"rotations orthonormal ({face['ortho_max']:.2e}), distortion "
+        f"{face['distortion']:.5f} < seeded {face['distortion_seeded']:.5f}"
+        f" [{card}]")
+    return dict(release=model, src=src, seeded=seeded, heldout=heldout,
+                face=dict(model=fmodel, comp=fcomp, g=fg, train=ftrain),
+                numbers=dict(release=rel, face=face))
+
+
+def phase_train_plain(dev, card, trained, cfg=None):
+    """Card against plain: Lloyd from one C_init on the card and on the
+    CPU, and the face rotations against a float64 eigh with the copied
+    allocation. Also times ``torch.linalg.eigh`` alone on 512 matrices
+    of 128² and of 32² and on one 4096²."""
+    from columbiaimagesearch_tpu_torch.ops.eigen_alloc import (
+        eigenvalue_allocation_batch,
+    )
+    from columbiaimagesearch_tpu_torch.ops.kmeans import lloyd_kmeans
+    from columbiaimagesearch_tpu_torch.ops.rotations import (
+        accumulate_covariance_estimators,
+        compute_rotations_from_accumulators,
+    )
+
+    cfg = dict(TRAIN, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model = trained["release"]
+    V, Dh = model.V, model.Cs.shape[2]
+    X = trained["heldout"][:cfg["lloyd_rows"], :Dh].contiguous()
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 13)
+    C0 = X[torch.randperm(X.shape[0], generator=g, device=dev)[:V]]
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        C1, a1, _ = lloyd_kmeans(X.to(d), C0.to(d), iters=1)
+        Cn, _, inertia = lloyd_kmeans(X.to(d), C1, iters=cfg["lloyd_iters"]
+                                      - 1)
+        sync()
+        out[name] = (C1.cpu(), a1.cpu(), inertia, time.perf_counter() - t0)
+    agree = float((out["card"][1] == out["cpu"][1]).double().mean())
+    c_err = float((out["card"][0] - out["cpu"][0]).abs().max())
+    i_rel = abs(out["card"][2] - out["cpu"][2]) / out["cpu"][2]
+    log(f"train plain: Lloyd [{X.shape[0]}, {Dh}] V={V} from one C_init: "
+        f"after 1 iteration assignments equal on {agree:.6f} of rows, "
+        f"centroid max abs {c_err:.2e}; after {cfg['lloyd_iters']} inertia "
+        f"card {out['card'][2]:.6e} cpu {out['cpu'][2]:.6e} (rel "
+        f"{i_rel:.2e}); card {out['card'][3]:.2f}s, cpu "
+        f"{out['cpu'][3]:.2f}s (host clock) [{card}]")
+    if not (agree >= LLOYD_AGREE and c_err <= LLOYD_C_ATOL
+            and i_rel <= LLOYD_INERTIA_RTOL):
+        raise AssertionError("train plain: Lloyd on the card differs from "
+                             "the CPU's")
+
+    face = trained["face"]
+    fm = face["model"]
+    fDh = fm.Cs.shape[2]
+    A, mu, cnt, _, _ = accumulate_covariance_estimators(
+        face["train"][:, :fDh], fm.Cs[0])
+    R, _ = compute_rotations_from_accumulators(A, mu, cnt, fm.M // 2)
+    # The card's own eigenvalues, from the same covariance (the formula of
+    # compute_rotations_from_accumulators, on the card).
+    m32 = mu / cnt.clamp_min(1.0)[:, None]
+    cov32 = ((A + A.transpose(1, 2))
+             / (2.0 * (cnt - 1.0)).clamp_min(1.0)[:, None, None]
+             - m32[:, :, None] * m32[:, None, :])
+    E32 = torch.linalg.eigh(cov32)[0].double().cpu().numpy()
+    A64, mu64 = A.double().cpu().numpy(), mu.double().cpu().numpy()
+    n64 = cnt.double().cpu().numpy()
+    m = mu64 / np.maximum(n64, 1.0)[:, None]
+    cov = ((A64 + A64.transpose(0, 2, 1))
+           / np.maximum(2.0 * (n64 - 1.0), 1.0)[:, None, None]
+           - m[:, :, None] * m[:, None, :])
+    E, _ = np.linalg.eigh(cov)
+    deg = n64 < fDh
+    E[deg] = E32[deg] = 1.0
+    perm = eigenvalue_allocation_batch(fm.M // 2, E)
+    # The greedy allocation is discontinuous: where two buckets' log-sums
+    # nearly tie, fp32 eigenvalues can pick another bucket than float64
+    # ones. Those clusters are held to the allocation of the card's own
+    # eigenvalues (the same copied code) and counted.
+    perm_card = eigenvalue_allocation_batch(fm.M // 2, E32)
+    ties = (perm != perm_card).any(axis=1) & ~deg
+    R64 = R.double().cpu().numpy()
+    worst_off = worst_diag = worst_eig = 0.0
+    for v in np.nonzero(~deg)[0]:
+        rot = R64[v] @ cov[v] @ R64[v].T
+        scale = E[v].max()
+        worst_off = max(worst_off,
+                        np.abs(rot - np.diag(np.diag(rot))).max() / scale)
+        worst_eig = max(worst_eig, np.abs(E32[v] - E[v]).max() / scale)
+        want = E[v][perm_card[v] if ties[v] else perm[v]]
+        worst_diag = max(worst_diag, np.abs(np.diag(rot) - want).max() / scale)
+    n_ties = int(ties.sum())
+    log(f"train plain: face rotations (V={fm.V}, Dh={fDh}, "
+        f"{int((~deg).sum())} clusters with count >= Dh) vs a float64 eigh "
+        f"+ the copied allocation: R cov R^T off-diagonal max "
+        f"{worst_off:.2e}, eigenvalues max {worst_eig:.2e}, diagonal vs the "
+        f"reference eigenvalues in allocation order max {worst_diag:.2e} "
+        f"(relative to each cluster's largest); {n_ties} clusters' "
+        f"allocation meets a near-tie and follows the card's eigenvalues")
+    if not (worst_off <= ROT_RTOL and worst_eig <= ROT_RTOL
+            and worst_diag <= ROT_RTOL and n_ties <= ROT_MAX_TIES * fm.V):
+        raise AssertionError("train plain: face rotations differ from the "
+                             "float64 reference")
+
+    # torch.linalg.eigh alone: per-matrix cost at the rotations' width
+    # (the fit's own eigh stage times the 4,096-matrix calls), at a width
+    # cuSOLVER's batched Jacobi covers (n <= 32), and the PCA's one matrix.
+    eigh_s = {}
+    if dev.type == "cuda":
+        for b, n in ((512, Dh), (512, 32), (1, model.pca_P.shape[0])):
+            B = torch.randn(b, n, n // 2, generator=g, device=dev)
+            cov = B @ B.transpose(1, 2)
+            torch.linalg.eigh(cov[:1])
+            sync()
+            t0 = time.perf_counter()
+            torch.linalg.eigh(cov)
+            sync()
+            eigh_s[f"{b}x{n}^2"] = round(time.perf_counter() - t0, 4)
+            del B, cov
+        log(f"train plain: torch.linalg.eigh alone (s): {eigh_s}; linalg "
+            f"{torch.backends.cuda.preferred_linalg_library()} [{card}]")
+    return dict(lloyd_agree=agree, lloyd_c_err=c_err, lloyd_inertia_rel=i_rel,
+                rot_off=worst_off, rot_diag=worst_diag, eigh_alone_s=eigh_s)
+
+
+def phase_train_index(dev, card, cfg=None):
+    """``SearcherLOPQ.train_index`` through ``build_searcher``: the
+    release conf with ``lopq`` at V=``index_V``, its KVIndexer holding one
+    update of ``index_rows`` seeded 256-d features; the facade trains at
+    init on the card and saves the model, a second facade loads it, and
+    one query answers with itself first."""
+    import shutil
+
+    from columbiaimagesearch_tpu_torch.common.factory import (
+        build_indexer,
+        build_searcher,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        build_extr_str,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.featsio import (
+        normfeatB64encode,
+    )
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+
+    cfg = dict(TRAIN, **(cfg or {}))
+    work = os.path.join(ROOT, "build", "train_index")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        with open(os.path.join(ROOT, cfg["conf"])) as f:
+            conf = json.load(f)
+        n, D = cfg["index_rows"], int(conf["SEARCHLOPQ_lopq_pcadims"])
+        conf.update({"SEARCHLOPQ_model_type": "lopq",
+                     "SEARCHLOPQ_lopq_V": cfg["index_V"],
+                     "SEARCHLOPQ_nb_train": n,
+                     "SEARCHLOPQ_train_at_init": True,
+                     "SEARCHLOPQ_coalesce_window_ms": None,
+                     "KVI_db_path": os.path.join(work, "cuimgsearch.db"),
+                     "ST_base_path": os.path.join(work, "storer")})
+        g = torch.Generator(device=dev)
+        g.manual_seed(cfg["seed"] + 14)
+        comp = torch.randn(64, D, generator=g, device=dev)
+        feats = mixture(n, comp, g)
+        feats = (feats / feats.norm(dim=1, keepdim=True)).cpu().numpy()
+        extr = build_extr_str("sentibank", "full", "image")
+        sha1s = [f"{i:040X}" for i in range(n)]
+        kv = build_indexer(conf)
+        kv.push_dict_rows({s: {f"ext:{extr}": normfeatB64encode(x),
+                               f"ext:{extr}_processed": "1",
+                               kv.get_col_imgurl(): f"img/{s}"}
+                           for s, x in zip(sha1s, feats)},
+                          kv.table_sha1infos_name)
+        uid, _ = kv.get_next_update_id(extr_type=extr)
+        kv.push_dict_rows({uid: {kv.get_col_listsha1s(): ",".join(sha1s)}},
+                          kv.table_updateinfos_name)
+        t0 = time.perf_counter()
+        facade = build_searcher(conf)
+        train_s = time.perf_counter() - t0
+        if not (isinstance(facade.model, LOPQModel)
+                and facade.model.device == dev
+                and facade.get_nb_indexed() == n):
+            raise AssertionError("train_index: the facade did not train and "
+                                 "index on the card")
+        conf["SEARCHLOPQ_train_at_init"] = False
+        t0 = time.perf_counter()
+        again = build_searcher(conf)
+        load_s = time.perf_counter() - t0
+        if not torch.equal(again.model.Rs, facade.model.Rs) or \
+                again.get_nb_indexed() != n:
+            raise AssertionError("train_index: the saved model did not load")
+        out = again.search_from_feats([(sha1s[7], None)], [feats[7]],
+                                      {"max_returned": 5})
+        first = out["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"][0]
+        if first != sha1s[7]:
+            raise AssertionError(f"train_index: query 7 came back as {first}")
+        log(f"train_index: build_searcher(lopq, V={cfg['index_V']}, "
+            f"nb_train={n}) trained at init, saved and indexed {n} rows in "
+            f"{train_s:.2f}s; a second build_searcher loaded the model from "
+            f"the storer in {load_s:.2f}s; the query came back first "
+            f"[{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(train_s=train_s, load_s=load_s)
+
+
+def recall_at(searcher, queries, nns, what):
+    """recall@{1, 10, 100} without rerank, quota 100 (index/eval.py)."""
+    from columbiaimagesearch_tpu_torch.index.eval import get_recall
+
+    rec, q_s = get_recall(searcher, queries.cpu().numpy(), nns,
+                          thresholds=(1, 10, 100))
+    log(f"recall: {what}: recall@1 {rec[0]:.2f} @10 {rec[1]:.2f} @100 "
+        f"{rec[2]:.2f} over {len(nns)} queries ({q_s * 1e3:.2f} ms a "
+        f"search, host clock)")
+    return [float(r) for r in rec]
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -517,25 +1027,30 @@ def _check_results(res, limit, what):
             raise AssertionError(f"{what}: distances not finite ascending")
 
 
-def phase_main_path(dev, cfg, card):
-    """Index the corpus and answer waves; returns (state, launches)."""
+def phase_main_path(dev, cfg, card, trained):
+    """Index the corpus and answer waves on the trained release model's
+    index-space tables; returns (state, launches)."""
     from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
     from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModel
     from columbiaimagesearch_tpu_torch.index.query import lopq_query
     from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(cfg["seed"])
-    comp = torch.randn(256, cfg["D"], generator=g, device=dev)
-    comp /= comp.norm(dim=1, keepdim=True)
+    release, src = trained["release"], trained["src"]
+    g = src["g"]
+
+    def draw(n):
+        return index_rows(n, src, release)
+
     t0 = time.perf_counter()
-    model = make_model(mixture(cfg["train"], comp, g), cfg["V"], cfg["M"],
-                       cfg["S"], g)
-    rows = mixture(cfg["rows"], comp, g)
+    model = LOPQModel(release.Cs, release.Rs, release.mus, release.subs,
+                      device=dev)
+    rows = draw(cfg["rows"])
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
-    log(f"main path: model + {cfg['rows']} rows made in "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"main path: the trained release model's index-space tables; "
+        f"{cfg['rows']} rows (the PCA image of raw rows, made a chunk at a "
+        f"time) in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
                                rows, chunk=8192)
@@ -556,7 +1071,7 @@ def phase_main_path(dev, cfg, card):
         raise AssertionError(f"indexed {nb} rows, want {cfg['rows']}")
     del coarse, fine
 
-    waves = [mixture(cfg["wave"], comp, g) for _ in range(cfg["waves"])]
+    waves = [draw(cfg["wave"]) for _ in range(cfg["waves"])]
     self_rows = torch.randint(0, cfg["rows"], (4,), generator=g, device=dev)
     rerank_waves = [w.clone() for w in waves]
     rerank_waves[0][:4] = rows[self_rows]
@@ -616,7 +1131,48 @@ def phase_main_path(dev, cfg, card):
     log(f"main path: checks passed: {lim} valid ids per result, ascending "
         f"distances, {len(self_rows) + 1} indexed rows returned first at "
         f"exact distance 0 under rerank")
-    return dict(searcher=searcher, waves=waves, comp=comp, g=g), launches
+    return dict(searcher=searcher, waves=waves, draw=draw, g=g), launches
+
+
+def phase_recall(dev, cfg, state, card, trained):
+    """recall@{1, 10, 100} without rerank (quota 100, ``get_recall``) over
+    ``queries`` near-duplicate queries of rows of the ``sub_rows``-row
+    sub-index, against the exact neighbours (``compute_all_neighbors``):
+    the trained and the seeded model on that sub-index, and the trained
+    model on the full index. The trained model's recall@100 must not fall
+    below the seeded model's by more than RECALL_SLACK."""
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.eval import compute_all_neighbors
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    s = state["searcher"]
+    nb = s.get_nb_indexed()
+    rows = s._dev["feats"][:nb]          # the index rows, insertion order
+    sub = rows[:TRAIN["sub_rows"]]
+    g = state["g"]
+    picks = torch.randint(0, sub.shape[0], (TRAIN["queries"],), generator=g,
+                          device=dev)
+    queries = sub[picks] + TRAIN["query_noise"] * torch.randn(
+        TRAIN["queries"], sub.shape[1], generator=g, device=dev)
+    nns_sub = compute_all_neighbors(queries, sub)
+    out = {}
+    for name, model in (("trained", s.model), ("seeded", trained["seeded"])):
+        coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                                   sub, chunk=8192)
+        ss = LOPQSearcherTorch(model, capacity_hint=sub.shape[0])
+        ss.add_codes((coarse.cpu().numpy(),
+                      fine.to(torch.uint8).cpu().numpy()))
+        out[name] = recall_at(ss, queries, nns_sub,
+                              f"{name} model, {sub.shape[0]}-row sub-index")
+        del ss, coarse, fine
+    out["trained_full"] = recall_at(
+        s, queries, compute_all_neighbors(queries, rows),
+        f"trained model, full {nb}-row index [{card}]")
+    if not out["trained"][2] >= out["seeded"][2] - RECALL_SLACK:
+        raise AssertionError(f"recall: the trained model's recall@100 "
+                             f"{out['trained'][2]} is below the seeded "
+                             f"model's {out['seeded'][2]}")
+    return out
 
 
 def _geometry(searcher, cfg):
@@ -794,7 +1350,7 @@ def phase_profile(dev, cfg, state, card):
     and the top ops by device time."""
     s = state["searcher"]
     for rnb in (None, cfg["rerank_nb"]):
-        X = mixture(cfg["wave"], state["comp"], state["g"])
+        X = state["draw"](cfg["wave"])
         kw = dict(quota=cfg["quota"], limit=cfg["limit"], with_codes=False,
                   rerank_nb=rnb)
         s.search_batch(X, **kw)                # settle the tier hint
@@ -821,8 +1377,7 @@ def phase_numbers(dev, cfg, state, card):
     Q, K = _geometry(s, cfg)
     tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
               d["cell_start"])
-    batches = [mixture(cfg["wave"], state["comp"], state["g"])
-               for _ in range(6)]
+    batches = [state["draw"](cfg["wave"]) for _ in range(6)]
     nq = cfg["wave"]
     V = cfg["V"]
     out = {}
@@ -1050,25 +1605,20 @@ def phase_scan_check(dev, card, seed):
     return worst, out
 
 
-def phase_pca(dev, cfg, state, card):
-    """The release model's PCA front end: a LOPQModelPCA with a seeded
-    orthonormal ``pca_P [4096, 256]`` over the headline model's tables.
-    Raw rows go through ``add_data(store_feats=True)`` and raw queries
-    through one rerank wave; the results must equal a plain-model
-    searcher's given ``apply_PCA`` of the same rows and queries."""
-    from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+def phase_pca(dev, cfg, state, card, trained):
+    """The release model's PCA front end: the trained LOPQModelPCA
+    (``pca_P [4096, 256]`` over the main path's tables). Raw rows go
+    through ``add_data(store_feats=True)`` and raw queries through one
+    rerank wave; the results must equal a plain-model searcher's given
+    ``apply_PCA`` of the same rows and queries."""
     from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
 
     base = state["searcher"].model
-    g, comp = state["g"], state["comp"]
-    D = 2 * int(base.Cs.shape[2])
-    n, raw_dim = PCA["rows"], PCA["raw_dim"]
-    P = torch.linalg.qr(torch.randn(raw_dim, D, generator=g, device=dev))[0]
-    mu = 0.1 * torch.randn(raw_dim, generator=g, device=dev)
-    pm = LOPQModelPCA(base.Cs, base.Rs, base.mus, base.subs, P, mu,
-                      device=dev)
-    raw = mixture(n, comp, g) @ P.T + mu        # apply_PCA(raw) ~ mixture
-    wave = mixture(PCA["wave"], comp, g) @ P.T + mu
+    pm = trained["release"]
+    P = pm.pca_P
+    n = PCA["rows"]
+    raw = raw_rows(n, trained["src"])
+    wave = raw_rows(PCA["wave"], trained["src"])
     wave[:4] = raw[:4]
     t0 = time.perf_counter()
     ps = LOPQSearcherTorch(pm, capacity_hint=n)
@@ -1106,21 +1656,16 @@ def phase_pca(dev, cfg, state, card):
         f"indexed raw rows returned first")
 
 
-def face_index(dev):
-    """The face configuration's seeded model and index rows (FACE): the
-    gaussian mixture encoded by a model made from it. Returns (model,
-    coarse [n, 2] and fine [n, M] uint8 as numpy, the mixture's components,
-    the generator, to draw queries from the same mixture)."""
+def face_index(dev, face):
+    """The face configuration's trained model and index rows (FACE): the
+    face mixture encoded by the model ``phase_train`` trained on it.
+    Returns (model, coarse [n, 2] and fine [n, M] uint8 as numpy, the
+    mixture's components, the generator, to draw queries from the same
+    mixture)."""
     from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
 
-    cfg = FACE
-    g = torch.Generator(device=dev)
-    g.manual_seed(cfg["seed"] + 7)
-    comp = torch.randn(256, cfg["D"], generator=g, device=dev)
-    comp /= comp.norm(dim=1, keepdim=True)
-    model = make_model(mixture(cfg["train"], comp, g), cfg["V"], cfg["M"],
-                       cfg["S"], g)
-    rows = mixture(cfg["rows"], comp, g)
+    model, comp, g = face["model"], face["comp"], face["g"]
+    rows = mixture(FACE["rows"], comp, g)
     coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
                                rows, chunk=8192)
     del rows
@@ -1128,8 +1673,9 @@ def face_index(dev):
             comp, g)
 
 
-def phase_exhaustive(dev, card):
-    """The exhaustive exact-ADC path at face-index scale (FACE)."""
+def phase_exhaustive(dev, card, face):
+    """The exhaustive exact-ADC path at face-index scale (FACE) on the
+    trained face model."""
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         BLK,
         ExhaustiveADC,
@@ -1147,7 +1693,7 @@ def phase_exhaustive(dev, card):
     V, k, n = cfg["V"], cfg["k"], cfg["rows"]
     sync = torch.cuda.synchronize
     t0 = time.perf_counter()
-    model, coarse, fine, comp, g = face_index(dev)
+    model, coarse, fine, comp, g = face_index(dev, face)
     log(f"exhaustive: model (V={V} M={cfg['M']} S={cfg['S']} "
         f"D={cfg['D']}) + {n} rows made and encoded in "
         f"{time.perf_counter() - t0:.1f}s [{card}]")
@@ -1417,9 +1963,10 @@ def _check_reply(reply, sha1, what):
                              f"{ids[:1]}")
 
 
-def phase_serving(dev, card, cfg=None):
-    """The release configuration served over HTTP (see the module
-    docstring, phase 10). Returns the launch counts and numbers."""
+def phase_serving(dev, card, trained, cfg=None):
+    """The release configuration served over HTTP on the trained release
+    model (see the module docstring, phase 10). Returns the launch counts
+    and numbers."""
     import shutil
     import threading
 
@@ -1479,24 +2026,15 @@ def phase_serving(dev, card, cfg=None):
     sha1s = [get_SHA1_from_data(b) for b in bufs]
     feats, status = featurizer.featurize_buffers(bufs)
     assert not any(status) and len(set(sha1s)) == len(bufs)
-    unit = feats / np.linalg.norm(feats, axis=1, keepdims=True)
 
-    # The model: the headline's tables plus a seeded orthonormal PCA whose
-    # mean is the images' (PCA centres its data).
-    g = torch.Generator(device=dev)
-    g.manual_seed(cfg["seed"])
-    comp = torch.randn(256, D, generator=g, device=dev)
-    comp /= comp.norm(dim=1, keepdim=True)
-    base = make_model(mixture(cfg["train"], comp, g), V, M, S, g)
-    P = torch.linalg.qr(torch.randn(4096, D, generator=g, device=dev))[0]
-    model = LOPQModelPCA(base.Cs, base.Rs, base.mus, base.subs, P,
-                         torch.from_numpy(unit.mean(0)), device=dev)
+    # The model: the trained release model, as train_index saves it.
+    model = trained["release"]
     extr = build_extr_str("sentibank", "full", "image")
     key = f"{extr}_lopq_pca-pca{D}-subq{S}-V{V}-M{M}"
     t0 = time.perf_counter()
     build_storer(conf).save(key, model)
     save_s = time.perf_counter() - t0
-    del base, model
+    del model
 
     t0 = time.perf_counter()
     facade = build_searcher(conf)
@@ -1516,7 +2054,7 @@ def phase_serving(dev, card, cfg=None):
     s = facade.searcher
     try:
         t0 = time.perf_counter()
-        rows = mixture(cfg["rows"], comp, g)
+        rows = index_rows(cfg["rows"], trained["src"], facade.model)
         coarse, fine = lopq_encode(facade.model.Cs, facade.model.Rs,
                                    facade.model.mus, facade.model.subs, rows,
                                    chunk=8192)
@@ -2208,20 +2746,26 @@ def main():
     phase_build()
     worst, luts = phase_kernel_check(dev, card, cfg["seed"])
     scan_worst, _ = phase_scan_check(dev, card, cfg["seed"])
-    state, launches = phase_main_path(dev, cfg, card)
+    trained = phase_train(dev, card)
+    plain = phase_train_plain(dev, card, trained)
+    del trained["face"]["train"], trained["heldout"]
+    train_index = phase_train_index(dev, card)
+    torch.cuda.empty_cache()
+    state, launches = phase_main_path(dev, cfg, card, trained)
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
+    recall = phase_recall(dev, cfg, state, card, trained)
     phase_query_parity(dev, cfg, state)
     phase_numbers(dev, cfg, state, card)
     phase_memory(dev, cfg, state, card)
     phase_profile(dev, cfg, state, card)
-    phase_pca(dev, cfg, state, card)
+    phase_pca(dev, cfg, state, card, trained)
     del state
     torch.cuda.empty_cache()
     phase_fc7(dev, card)
-    serving = phase_serving(dev, card)
+    serving = phase_serving(dev, card, trained)
     torch.cuda.empty_cache()
-    ex = phase_exhaustive(dev, card)
+    ex = phase_exhaustive(dev, card, trained["face"])
     index = ex.pop("index")
     torch.cuda.empty_cache()
     face_probe, face_launches = phase_face_probe(dev, card, index)
@@ -2237,6 +2781,10 @@ def main():
     worst = max([worst] + [r["max_abs"] for k, r in face_probe.items()
                            if k.startswith("lut")])
     head, face = luts["headline NQ=100"], ex["face"][8]
+    name, power = card.rsplit(",", 1)
+    log(json.dumps({"train": dict(
+        trained["numbers"], plain=plain, train_index=train_index,
+        recall=recall, card=name.strip(), power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",

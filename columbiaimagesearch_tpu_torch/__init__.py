@@ -8,7 +8,8 @@ lookup tables (``csrc/lut_build.cu``) and the exhaustive ADC scan
 (``csrc/adc_scan.cu``). It also serves: image -> DeepSentibank fc7, the
 fused raw-feature query, the ``SearcherLOPQ`` facade and the HTTP API,
 and face search (conv-HOG detection -> 150x150 chips -> 128-d FaceResNet
-embeddings -> the probed query).
+embeddings -> the probed query), and trains LOPQ models on the card
+(k-means, PCA, local rotations).
 It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
@@ -16,9 +17,13 @@ port is tested against, not a dependency.
 Layout (JAX counterpart in brackets):
 
 - ``device.py``: fp32 precision settings (TF32 off) and device memory.
-- ``utils/chunking.py``, ``utils/codes.py`` [utils/chunking.py, utils/codes.py]
-- ``index/model.py`` [index/model.py]: ``LOPQModel`` and ``LOPQModelPCA``
-  (parameter containers, npz I/O).
+- ``utils/chunking.py``, ``utils/codes.py``, ``utils/xvecs.py``
+  [utils/chunking.py, utils/codes.py, utils/xvecs.py]
+- ``ops/kmeans.py``, ``ops/pca.py``, ``ops/rotations.py``,
+  ``ops/eigen_alloc.py`` [the same names]: training.
+- ``index/model.py`` [index/model.py]: ``train``, ``LOPQModel`` and
+  ``LOPQModelPCA`` (parameter containers, ``fit`` classmethods, npz I/O).
+- ``index/eval.py`` [index/eval.py]: recall, distortion, cell balance.
 - ``index/encode.py`` [index/tpu_encode.py]: ``lopq_encode``.
 - ``index/csr.py`` [index/csr.py]: CSR build and in-place appends.
 - ``index/lut.py`` [index/tpu_query.py ``build_luts_pallas``]: the LUT

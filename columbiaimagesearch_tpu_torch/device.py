@@ -52,6 +52,17 @@ def resolve_device(device=None):
     return default_device()
 
 
+def compute_device(x, device=None):
+    """Where an entry point given ``x`` runs: ``device`` when the caller
+    names one, else ``x``'s own device for a tensor, else
+    :func:`default_device` (raises without a card)."""
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return default_device()
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -16,9 +16,18 @@ is present; whoever runs it places it with :meth:`LOPQModel.to` (the
 
 :class:`LOPQModelPCA` adds the PCA front end of the release model
 (``lopq_pca``): ``pca_P [D_raw, D]``, ``pca_mu [D_raw]`` and ``renorm``.
-``apply_PCA`` is one fp32 ``torch.matmul`` on the model's device (the JAX
-package runs it in numpy, outside any kernel). Training (``fit``,
-``fit_pca``) and ``.mat``/proto I/O are not ported yet (ROADMAP.md).
+``apply_PCA`` is an fp32 ``torch.matmul`` on the model's device over row
+chunks (the JAX package runs it in numpy, outside any kernel).
+
+Training (model.py:43-142, 179-186, 424-447): :func:`train` fits the
+coarse k-means per half, the local rotations and the subquantizers on the
+device (ops/), reusing any parameters given. The port's models are built
+from tables, so ``LOPQModel.fit`` and ``LOPQModelPCA.fit`` are
+classmethods that take the JAX ``fit`` arguments (plus the constructor's
+``V``/``M``/``subquantizer_clusters``, ``parameters=`` for reuse,
+``device`` and ``generator``) and return a trained model; the JAX methods
+train the instance in place. ``.mat``/proto I/O is not ported yet
+(ROADMAP.md).
 """
 
 from collections import namedtuple
@@ -26,10 +35,146 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.device import compute_device
 from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+from columbiaimagesearch_tpu_torch.ops.kmeans import (
+    STREAMING_THRESHOLD_ELEMENTS,
+    fit_kmeans_auto,
+)
+from columbiaimagesearch_tpu_torch.ops.pca import train_pca
+from columbiaimagesearch_tpu_torch.ops.rotations import (
+    compute_local_rotations,
+    compute_residuals,
+    project_residuals_to_local,
+)
 from columbiaimagesearch_tpu_torch.utils.codes import code_dtype_for
 
 LOPQCode = namedtuple("LOPQCode", ["coarse", "fine"])
+
+#: rows a chunk of ``apply_PCA`` (a [chunk, D_raw] centred transient)
+_PCA_CHUNK = 32768
+
+
+def _derive_seed(random_state, salt: int):
+    if random_state is None:
+        return None
+    return (int(random_state) + salt) % (2**31 - 1)
+
+
+def _half_on(x, dev):
+    """One half of the training data on ``dev``, unless it is too large
+    to move whole; then it stays where it is and the ops stream it."""
+    if (not isinstance(x, torch.Tensor)
+            and np.asarray(x).size > STREAMING_THRESHOLD_ELEMENTS):
+        return x
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+
+def train(data, V: int = 8, M: int = 4, subquantizer_clusters: int = 256,
+          parameters=None, kmeans_coarse_iters: int = 10,
+          kmeans_local_iters: int = 20, n_init: int = 10,
+          subquantizer_sample_ratio: float = 1.0, random_state=None,
+          verbose: bool = False, *, device=None, generator=None):
+    """Fit an LOPQ model (model.py:43-142): coarse k-means per half,
+    local rotations per coarse cluster, subquantizer k-means over the
+    locally projected residuals, reusing any parameters given (``Cs``,
+    ``Rs`` with ``mus``; given subquantizers are retrained, as in JAX).
+
+    :param data: [N, D] array or tensor; a device tensor stays on the
+        device throughout
+    :param random_state: seeds the subsample (numpy, as the reference)
+        and, through ``_derive_seed``, every k-means run
+    :param generator: a ``torch.Generator`` on ``device`` that every
+        k-means run draws from instead of its seed
+    :returns: ((C1, C2), (Rs1, Rs2), (mu1, mu2), (subs1, subs2)) tensors
+        on the device, ``subs*`` lists of M/2 [S, D/M] codebooks
+    """
+    del verbose  # stage logging is handled by callers
+    dev = compute_device(data, device)
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data, dtype=np.float32)
+    Cs = Rs = mus = None
+    if parameters is not None:
+        Cs, Rs, mus = parameters[:3]
+    if Rs is None or mus is None:
+        Rs = mus = None
+    N, D = data.shape
+    halves = [_half_on(data[:, :D // 2], dev), _half_on(data[:, D // 2:], dev)]
+    kw = dict(device=dev, generator=generator)
+
+    if Cs is not None:
+        Cs = [torch.as_tensor(C, dtype=torch.float32, device=dev) for C in Cs]
+    else:
+        Cs = [fit_kmeans_auto(h, V, kmeans_coarse_iters, n_init,
+                              seed=_derive_seed(random_state, s), **kw)
+              for s, h in enumerate(halves)]
+
+    if Rs is not None:
+        Rs = [torch.as_tensor(R, dtype=torch.float32, device=dev) for R in Rs]
+        mus = [torch.as_tensor(m, dtype=torch.float32, device=dev)
+               for m in mus]
+        assignments = residuals = None
+    else:
+        fitted = [compute_local_rotations(h, C, M // 2, device=dev)
+                  for h, C in zip(halves, Cs)]
+        Rs, mus, assignments, residuals = (list(t) for t in zip(*fitted))
+
+    # Subsample for subquantizer training with the reference's RNG
+    # (np.random.RandomState(random_state).choice, model.py:104-106), so
+    # matched seeds select identical rows in both packages.
+    N2 = int(np.floor(min(subquantizer_sample_ratio, 1.0) * N))
+    sample_inds = np.random.RandomState(random_state).choice(N, N2, False)
+    si = torch.from_numpy(sample_inds)
+
+    def pick(x):
+        return (x[si.to(x.device)] if isinstance(x, torch.Tensor)
+                else x[sample_inds])
+
+    if assignments is not None:
+        residuals = [pick(r) for r in residuals]
+        assignments = [pick(a) for a in assignments]
+    else:
+        pairs = [compute_residuals(pick(h), C, device=dev)
+                 for h, C in zip(halves, Cs)]
+        residuals, assignments = (list(t) for t in zip(*pairs))
+    projected = [project_residuals_to_local(r, a, R, mu, device=dev)
+                 for r, a, R, mu in zip(residuals, assignments, Rs, mus)]
+    del residuals, assignments
+
+    subs = []
+    for s, p in enumerate(projected):
+        width = p.shape[1] // (M // 2)
+        subs.append([fit_kmeans_auto(
+            p[:, i * width:(i + 1) * width].contiguous(),
+            subquantizer_clusters, kmeans_local_iters, n_init,
+            seed=_derive_seed(random_state, 100 * (s + 1) + 10 * i), **kw)
+            for i in range(M // 2)])
+    return tuple(Cs), tuple(Rs), tuple(mus), tuple(subs)
+
+
+def _stacked(params):
+    """``train``'s pairs as the port's stacked tables."""
+    Cs, Rs, mus, subs = params
+    return (torch.stack(list(Cs)), torch.stack(list(Rs)),
+            torch.stack(list(mus)),
+            torch.stack([torch.stack(list(h)) for h in subs]))
+
+
+def _apply_pca(x, P, mu, renorm):
+    """``(x - mu) @ P`` over row chunks on ``P``'s device (a host array
+    moves a chunk at a time), L2-normalized per row with ``renorm``."""
+    dev = P.device
+    out = torch.empty((x.shape[0], P.shape[1]), dtype=torch.float32,
+                      device=dev)
+    for lo in range(0, x.shape[0], _PCA_CHUNK):
+        part = torch.as_tensor(x[lo:lo + _PCA_CHUNK], dtype=torch.float32,
+                               device=dev)
+        part = torch.matmul(part - mu, P)
+        if renorm:
+            part = part / torch.linalg.vector_norm(part, dim=-1,
+                                                   keepdim=True)
+        out[lo:lo + _PCA_CHUNK] = part
+    return out
 
 
 class LOPQModel:
@@ -61,6 +206,25 @@ class LOPQModel:
         [S, Dsub] codebooks (``LOPQModel.subquantizers``)."""
         return cls(np.stack(Cs), np.stack(Rs), np.stack(mus),
                    np.stack([np.stack(h) for h in subs]), device=device)
+
+    @classmethod
+    def fit(cls, data, kmeans_coarse_iters=10, kmeans_local_iters=20,
+            n_init=10, subquantizer_sample_ratio=1.0, random_state=None,
+            verbose=False, *, V=8, M=4, subquantizer_clusters=256,
+            parameters=None, device=None, generator=None):
+        """A model trained on ``data`` (model.py:179-186): the JAX
+        ``fit`` arguments in their order; ``V``, ``M`` and
+        ``subquantizer_clusters`` are the JAX constructor's. ``parameters``
+        (``Cs``, ``Rs``, ``mus``, ``subs``, any of them None) are reused
+        where given; ``V`` is then that of ``Cs``. See :func:`train`."""
+        if parameters is not None and parameters[0] is not None:
+            V = int(parameters[0][0].shape[0])
+        dev = compute_device(data, device)
+        params = train(data, V, M, subquantizer_clusters, parameters,
+                       kmeans_coarse_iters, kmeans_local_iters, n_init,
+                       subquantizer_sample_ratio, random_state, verbose,
+                       device=dev, generator=generator)
+        return cls(*_stacked(params), device=dev)
 
     # --------------------------------------------------------------- encode
 
@@ -139,15 +303,58 @@ class LOPQModelPCA(LOPQModel):
                    np.stack([np.stack(h) for h in subs]), pca_P, pca_mu,
                    renorm, device=device)
 
+    @staticmethod
+    def fit_pca(data, pca_dims=256, pca_subsample=None, *, device=None):
+        """PCA of the first ``pca_subsample`` rows (model.py:424-430):
+        ``(pca_P [D_raw, pca_dims], pca_mu [D_raw])`` on the device. The
+        JAX method sets them on the instance; here they go to
+        :meth:`fit` or the constructor."""
+        params, _ = train_pca(data, pca_dims, pca_subsample, device=device)
+        return params["P"], params["mu"]
+
+    @classmethod
+    def fit(cls, data, pca_dims=256, kmeans_coarse_iters=10,
+            kmeans_local_iters=20, n_init=10, subquantizer_sample_ratio=1.0,
+            random_state=None, verbose=False, pca_subsample=None,
+            apply_pca=True, train_pca=True, *, V=8, M=4,
+            subquantizer_clusters=256, renorm=False, parameters=None,
+            device=None, generator=None):
+        """A PCA model trained on raw ``data`` (model.py:432-447): the
+        JAX ``fit`` arguments in their order, then the constructor's.
+        ``parameters`` is the JAX six-tuple (``Cs``, ``Rs``, ``mus``,
+        ``subs``, ``pca_P``, ``pca_mu``); with ``train_pca`` a given PCA
+        raises, as in JAX. See :meth:`LOPQModel.fit`."""
+        dev = compute_device(data, device)
+        base, pca_P, pca_mu = (None, None, None)
+        if parameters is not None:
+            base, pca_P, pca_mu = parameters[:4], parameters[4], parameters[5]
+            if base[0] is not None:
+                V = int(base[0][0].shape[0])
+        if train_pca:
+            if pca_P is not None and pca_mu is not None:
+                raise ValueError("You are trying to retrain PCA...")
+            pca_P, pca_mu = cls.fit_pca(data, pca_dims, pca_subsample,
+                                        device=dev)
+        pca_P = torch.as_tensor(pca_P, dtype=torch.float32, device=dev)
+        pca_mu = torch.as_tensor(pca_mu, dtype=torch.float32, device=dev)
+        if apply_pca:
+            data = _apply_pca(data, pca_P, pca_mu, renorm)
+        params = train(data, V, M, subquantizer_clusters, base,
+                       kmeans_coarse_iters, kmeans_local_iters, n_init,
+                       subquantizer_sample_ratio, random_state, verbose,
+                       device=dev, generator=generator)
+        return cls(*_stacked(params), pca_P, pca_mu, renorm, device=dev)
+
     def apply_PCA(self, x):
         """PCA-project (and with ``renorm`` L2-normalize) rows: ``[N, D_raw]``
         array or tensor -> ``[N, D]`` float32 tensor on the model's device
-        (model.py:449-457)."""
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        out = torch.matmul(x - self.pca_mu, self.pca_P)
-        if self.renorm:
-            out = out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
-        return out
+        (model.py:449-457), over row chunks; one [D_raw] row gives [D]."""
+        if not isinstance(x, (torch.Tensor, np.ndarray)):
+            x = np.asarray(x, dtype=np.float32)
+        if x.ndim == 1:
+            return _apply_pca(x[None], self.pca_P, self.pca_mu,
+                              self.renorm)[0]
+        return _apply_pca(x, self.pca_P, self.pca_mu, self.renorm)
 
     def predict_batch(self, X):
         """Code N raw vectors: PCA first, then the LOPQ encoder."""

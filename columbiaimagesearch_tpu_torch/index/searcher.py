@@ -39,8 +39,8 @@ runs every rung once before traffic. Search entry points run under
 run in the coalescer's and the HTTP handlers' threads); the device buffers
 are built outside it, so later in-place appends stay legal.
 
-``codestore_path``, ``get_cell`` and wide-V mode (V >= 8192) are not
-ported yet (ROADMAP.md).
+``codestore_path``, the bfloat16 rerank store, ``get_cell`` and wide-V
+mode (V >= 8192) are not ported yet (ROADMAP.md).
 """
 
 import threading
@@ -146,7 +146,19 @@ class LOPQSearcherTorch:
     #: the tier hint can shift back down
     REPROBE_EVERY = 32
 
-    def __init__(self, model, probe_width=None, capacity_hint=0):
+    def __init__(self, model, probe_width=None, codestore_path=None,
+                 rerank_dtype="auto", capacity_hint=0):
+        """The JAX searcher's arguments in its order (searcher.py:340);
+        ``codestore_path`` and the bfloat16 rerank store are not ported
+        yet and raise."""
+        if codestore_path is not None:
+            raise NotImplementedError(
+                "codestore_path: the native code store is not ported yet "
+                "(ROADMAP.md, still to port #6)")
+        if rerank_dtype not in ("auto", "float32"):
+            raise NotImplementedError(
+                f"rerank_dtype={rerank_dtype!r}: only the float32 rerank "
+                "store is ported (ROADMAP.md, Queue 1 #8)")
         self.model = model
         self.device = model.device
         self.probe_width = probe_width
@@ -244,10 +256,12 @@ class LOPQSearcherTorch:
                                   feats))
             self._dirty = True
 
-    def add_data(self, data, ids=None, store_feats=False):
+    def add_data(self, data, ids=None, num_procs=1, store_feats=False):
         """Encode raw vectors on the device and index them; with
         ``store_feats`` their index-space projection (PCA'd for a
-        ``LOPQModelPCA``) is kept for device reranking."""
+        ``LOPQModelPCA``) is kept for device reranking. ``num_procs`` is
+        the reference's and is ignored, as in JAX (searcher.py:495)."""
+        del num_procs
         data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
         coarse, fine = self.model.predict_batch(data)
         feats = None

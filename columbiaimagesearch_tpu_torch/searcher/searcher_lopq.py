@@ -8,7 +8,9 @@ Re-design of the reference's SearcherLOPQHBase
   models pickle as numpy in the JAX npz layout and unpickle on the host)
   and place it, or the model handed in, on the facade's ``device``
   (default: the first card; raises without one, so a missing card never
-  turns into a silent CPU run);
+  turns into a silent CPU run); else, with ``train_at_init``, harvest
+  training features from the indexer's updates, train (``lopq`` /
+  ``lopq_pca``) on that device and save the model in the storer;
 - incremental ``load_codes``: per-update code dicts cached in the storer
   (``<model_str>_codes/<update_id>``), an indexed-updates set persisted so
   restarts resume where they left off;
@@ -23,12 +25,11 @@ configuration (``detector_type="face"``, ``featurizer_type="face"``,
 conf/conf_search_face_local.json) runs on the port's conv-HOG detector and
 FaceResNet embedder (models/face_detector.py, models/face.py): each
 detected face is a query of the wave, with ids ``<sha1>_<bbox>``. Not
-ported yet, each
-raising ``NotImplementedError`` (ROADMAP.md, still to port): training
-(``train_index``, ``train_at_init``; #12), ``sharded=True`` (#14),
-``codestore_path`` (#6) and the bfloat16 rerank store
-(``rerank_dtype="bfloat16"``; Queue 1 #8). ``rerank_dtype="auto"`` is the
-float32 store, as the JAX plan picks while the store fits.
+ported yet, each raising ``NotImplementedError`` (ROADMAP.md, still to
+port): ``sharded=True`` (#14), ``codestore_path`` (#6) and the bfloat16
+rerank store (``rerank_dtype="bfloat16"``; Queue 1 #8).
+``rerank_dtype="auto"`` is the float32 store, as the JAX plan picks while
+the store fits.
 """
 
 import time
@@ -36,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+from columbiaimagesearch_tpu_torch.index.model import LOPQModel, LOPQModelPCA
 from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
 from columbiaimagesearch_tpu_torch.searcher.generic_searcher import GenericSearcher
 
@@ -154,12 +155,55 @@ class SearcherLOPQ(GenericSearcher):
             self.model, probe_width=self.probe_width,
             capacity_hint=self.capacity_hint)
 
+    def get_train_features(self, nb_features, start_date=START_DATE):
+        """Harvest features from the indexer's updates
+        (reference: searcher_lopqhbase.py:288-395)."""
+        feats = []
+        total = 0
+        extr_str = self.build_extr_str()
+        if self.indexer is None:
+            return []
+        for batch in self.indexer.get_updates_from_date(start_date,
+                                                        extr_type=extr_str):
+            for update_id, cols in batch:
+                col_list = self.indexer.get_col_listsha1s()
+                if col_list not in cols:
+                    continue
+                sha1s = cols[col_list]
+                if isinstance(sha1s, bytes):
+                    sha1s = sha1s.decode()
+                sha1s = sha1s.split(",")
+                _, fts = self.indexer.get_features_from_sha1s(
+                    sha1s, extr_str, self.featurizer_type)
+                feats.extend(fts)
+                total += len(fts)
+                if total >= nb_features:
+                    return feats[:nb_features]
+        return feats
+
     def train_index(self):
-        """Training is not ported yet (reference:
-        searcher_lopqhbase.py:397-474)."""
-        raise NotImplementedError(
-            "LOPQ training is not ported yet (ROADMAP.md, still to port "
-            "#12); store a trained model under build_model_str()")
+        """Train the LOPQ model on harvested features on the facade's
+        device and save it in the storer
+        (reference: searcher_lopqhbase.py:397-474)."""
+        feats = self.get_train_features(self.nb_train)
+        if len(feats) < self.nb_min_train:
+            raise RuntimeError(
+                f"Not enough features to train: {len(feats)} < "
+                f"{self.nb_min_train}")
+        data = np.ascontiguousarray(np.vstack(feats).astype(np.float32))
+        kw = dict(n_init=1, random_state=0, V=self.V, M=self.M,
+                  subquantizer_clusters=self.subquantizer_clusters,
+                  device=self.device)
+        if self.model_type == "lopq":
+            model = LOPQModel.fit(data, **kw)
+        elif self.model_type == "lopq_pca":
+            model = LOPQModelPCA.fit(data, pca_dims=self.pca_dims,
+                                     pca_subsample=self.nb_train_pca, **kw)
+        else:
+            raise ValueError(f"Unknown model_type {self.model_type}")
+        self.model = model
+        if self.storer is not None:
+            self.storer.save(self.build_model_str(), model)
 
     # ------------------------------------------------------------ indexing
 

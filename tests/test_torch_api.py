@@ -137,7 +137,10 @@ def env(tmp_path_factory):
     )
 
     from tests.test_torch_facade import _params
+    from tests.test_torch_sentibank import steady_jax_imgpipe
 
+    # both facades must decode through the native library (see the helper)
+    steady_jax_imgpipe()
     root = tmp_path_factory.mktemp("api")
     paths = []
     for g in range(4):

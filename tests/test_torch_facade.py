@@ -290,11 +290,14 @@ def test_unported_options_raise(store):
                 device="cpu")
     for kw, match in ((dict(sharded=True), "#14"),
                       (dict(codestore_path="x"), "#6"),
-                      (dict(rerank_dtype="bfloat16"), "Queue 1 #8"),
-                      (dict(train_at_init=True, storer=None,
-                            indexer=KVIndexer()), "#12")):
+                      (dict(rerank_dtype="bfloat16"), "Queue 1 #8")):
         with pytest.raises(NotImplementedError, match=match):
             SearcherLOPQ(**base, **kw)
+    # Training is ported (tests/test_torch_train.py): with no features to
+    # harvest, train_at_init fails as the JAX facade does.
+    with pytest.raises(RuntimeError, match="Not enough features"):
+        SearcherLOPQ(**base, train_at_init=True, storer=None,
+                     indexer=KVIndexer())
     # Faces are ported: detector_type="face" builds the conv-HOG detector
     # on the facade's device.
     from columbiaimagesearch_tpu_torch.extraction.detector import (

@@ -1,7 +1,9 @@
 """The port runs without JAX: a fresh interpreter imports every module of
 ``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
 exhaustive, the raw-feature fast path and one ``SearcherLOPQ`` facade
-search), runs the face embedder and the detector's device half, and never
+search), trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
+evaluates one, runs the face embedder and the detector's device half, and
+never
 loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
 the image routes import, lazily."""
 
@@ -17,9 +19,12 @@ import numpy as np
 import torch
 
 import columbiaimagesearch_tpu_torch
-from columbiaimagesearch_tpu_torch.index import (csr, encode, exhaustive_adc,
-                                                  lut, model, probe, query,
-                                                  searcher)
+from columbiaimagesearch_tpu_torch.index import (csr, encode, eval,
+                                                  exhaustive_adc, lut, model,
+                                                  probe, query, searcher)
+from columbiaimagesearch_tpu_torch.ops import (eigen_alloc, kmeans, pca,
+                                               rotations)
+from columbiaimagesearch_tpu_torch.utils import xvecs
 from columbiaimagesearch_tpu_torch.kernels import build
 from columbiaimagesearch_tpu_torch import (api, common, extraction, imgio,
                                            models, native, searcher as fac,
@@ -79,6 +84,13 @@ facade.searcher.add_codes(m.predict_batch(Xu),
                           [f"s{i}" for i in range(500)], feats=Xu)
 out = facade.search_from_feats([("q", None)], [X[11]], {"max_returned": 3})
 assert out["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"][0] == "s11"
+tm = model.LOPQModel.fit(X, n_init=1, random_state=0, V=4, M=4,
+                         subquantizer_clusters=8, device="cpu")
+assert eval.get_subquantizer_distortion(X, tm).shape == (4,)
+tpm = model.LOPQModelPCA.fit(X @ P.T, pca_dims=2 * Dh, n_init=1,
+                             random_state=0, V=4, M=4,
+                             subquantizer_clusters=8, device="cpu")
+assert tuple(tpm.pca_P.shape) == (3 * Dh, 2 * Dh)
 emb = face.FaceEmbedder(device="cpu")
 e = emb.featurize_chips(np.zeros((1, 150, 150, 3), np.uint8))
 assert e.shape == (1, 128) and e.dtype == np.float64, e.shape

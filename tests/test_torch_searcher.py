@@ -290,3 +290,41 @@ def test_has_rerank_feats_matches_jax(corpus):
         flags.append((js.has_rerank_feats, ts.has_rerank_feats))
     assert flags == [(False, False), (True, True), (False, False),
                      (False, False)]
+
+
+def test_add_data_takes_jax_positional_order(corpus):
+    """``add_data(X, ids, 4)``: the third argument is the reference's
+    ``num_procs`` on both searchers (JAX searcher.py:495), so neither keeps
+    a rerank store."""
+    from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
+
+    jm, tm, _, _, ids, feats, _ = corpus
+    js, ts = LOPQSearcherTPU(jm), LOPQSearcherTorch(tm)
+    for s in (js, ts):
+        s.add_data(feats[:500], ids[:500], 4)
+    assert ts.get_nb_indexed() == js.get_nb_indexed() == 500
+    assert ts.has_rerank_feats == js.has_rerank_feats is False
+    for s in (js, ts):
+        s.add_data(feats[500:800], ids[500:800], 1, True)
+    assert ts.has_rerank_feats == js.has_rerank_feats is False
+
+
+def test_init_takes_jax_positional_order(corpus, tmp_path):
+    """A third positional argument is ``codestore_path`` on both searchers
+    (JAX searcher.py:340); the port raises for it and for the bfloat16
+    store, which it has not ported, and takes ``capacity_hint`` fifth."""
+    import inspect
+
+    from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
+
+    _, tm, _, _, _, _, _ = corpus
+    names = list(inspect.signature(LOPQSearcherTorch.__init__).parameters)
+    assert names == list(
+        inspect.signature(LOPQSearcherTPU.__init__).parameters)
+    assert names[3] == "codestore_path"
+    with pytest.raises(NotImplementedError, match="codestore_path"):
+        LOPQSearcherTorch(tm, None, str(tmp_path / "codes"))
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        LOPQSearcherTorch(tm, None, None, "bfloat16")
+    s = LOPQSearcherTorch(tm, 8, None, "float32", 50_000)
+    assert (s.probe_width, s.capacity_hint) == (8, 50_000)

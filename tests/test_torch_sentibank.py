@@ -15,6 +15,7 @@ helper.
 import io
 import os
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -40,6 +41,38 @@ from columbiaimagesearch_tpu_torch.native.imgpipe import decode_resize_batch
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 HOPPER = os.path.join(DATA, "grace_hopper.jpg")
+
+
+def steady_jax_imgpipe(timeout_s=60.0):
+    """Load the JAX package's native decoder for certain before a test
+    compares the two packages' decode routes.
+
+    The JAX loader compiles ``native/libimgpipe.so`` straight onto the
+    library's path (no temporary file, no rename) whenever the file is
+    missing or older than its source. Processes that start at once (pytest
+    workers importing the same test modules) then run g++ on the same
+    output together, and one that loads the library while another is still
+    writing it gets ``OSError``, caches None for its lifetime and decodes
+    with PIL, whose pixels differ from the native decoder's. This clears
+    both caches and retries the load until the file is whole.
+    """
+    from columbiaimagesearch_tpu.native import build, imgpipe
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with build._LOCK:
+            build._CACHE.pop("imgpipe", None)
+        imgpipe._lib = None
+        if build.load_library("imgpipe") is not None:
+            break
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's native/libimgpipe.so did not "
+                        f"load within {timeout_s:.0f} s (g++, libjpeg or "
+                        f"libpng missing?)")
+        time.sleep(0.5)
+    # the next decode binds the loaded library's symbols afresh
+    imgpipe._lib = None
+    assert imgpipe.imgpipe_available()
 
 
 def _jpegs(rng, n, shape=(60, 50, 3)):
@@ -194,6 +227,7 @@ def test_native_decode_matches_jax_binding():
         decode_resize_batch as jax_decode,
     )
 
+    steady_jax_imgpipe()
     with open(HOPPER, "rb") as f:
         bufs = [f.read(), b"not an image"] + _jpegs(
             np.random.RandomState(5), 2)
@@ -214,6 +248,7 @@ def featurizer_pair():
 
     from tests.test_sentibank_weights import _deterministic_caffe_blobs
 
+    steady_jax_imgpipe()
     blobs = _deterministic_caffe_blobs(seed=1)
     return (JaxFeaturizer(params=jax_load_caffe(blobs)),
             SentibankFeaturizer(params=load_caffe_weights(blobs),
