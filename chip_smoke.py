@@ -95,17 +95,47 @@ V=256, M=8, S=256, D=128). Phases:
    forward's time per wave at n = 1, 8, 32 in float32 and bfloat16;
 10. serving: the release configuration (conf/conf_search_production.json:
    ``lopq_pca`` 4096 -> 256, V=4096, M=8, rerank on with the device store,
-   coalescing 4 ms / 32). The trained release model goes into the port's
+   coalescing 4 ms / 32; the rerank depth raised to 4,096, see SERVING). The trained release model goes into the port's
    storer, the facade comes
    from ``common.factory.build_searcher``, 10,485,760 index-space rows go
-   in through ``add_codes(..., feats=...)``, and the fc7 of seeded images
-   and of grace_hopper.jpg, extracted by ``GenericExtractor``, arrive
-   through a KVIndexer update and ``load_codes``. ``make_server`` then
-   answers ``byB64`` requests from 1 and from 32 concurrent clients and one
-   ``byPATH`` request: every answer has no error and the query image
+   in through ``add_codes(..., feats=...)``; then the ingest pipeline
+   (10a) fills the facade's store and ``load_codes`` indexes its rows
+   (the refresh seconds are printed). ``make_server`` then answers
+   ``byB64`` requests for pipeline images from 1 and from 32 concurrent
+   clients and one ``byPATH`` request for the pipeline's copy of
+   grace_hopper.jpg: every answer has no error and the query image
    first; one coalesced wave's ids equal ``search_batch`` on the same fc7
    normalized on the host; ``lut_build`` must launch. A torch.profiler
    trace of one 32-request wave gives device busy time and idle share;
+10a. pipeline (inside 10, once the facade holds the bulk rows): under
+   ``build/pipeline/``, 2,000 JPEGs (grace_hopper.jpg and the seeded ones
+   of ``serving_images``), a PNG, a GIF and a JPEG truncated after its
+   header; conf/conf_extraction_local.json as shipped with only
+   ``CHECK_input_dir`` and ``KVI_db_path`` (the facade's store)
+   rewritten; ``python -m columbiaimagesearch_tpu_torch.pipeline.
+   run_processing -c <conf> --once`` as a subprocess on the card (the
+   facade's Sentibank weights through $SENTIBANK_WEIGHTS), failing on a
+   timeout, a nonzero exit or a retried pass. Checks on the store: one
+   update per 1,000 files in walk order, each processed and completed; an
+   fc7 column for every decodable image; the failed column for the
+   truncated JPEG (PIL's path: imgpipe does not build on the card's
+   machine); a second ``--once`` run creates and processes nothing; 16
+   sampled images' stored fc7 equal to the card featurizer's
+   ``featurize_buffers`` on the same bytes (1e-4) and to the CPU forward
+   of the same pixels (FC7_RTOL/ATOL). Prints img/s over the whole run,
+   each update's fetch/extract/write seconds from the subprocess, and each
+   update replayed stage by stage in this process (buffer fetch, decode
+   and resize, device forward, column encode + sqlite write);
+10b. code store: ``LOPQSearcherTorch(trained release model,
+   codestore_path=build/codestore/...)`` takes 1,048,576 rows in 8
+   ``add_codes``; a second searcher opened on the file answers a
+   100-query wave exactly as a fresh searcher fed ``read_all()``'s rows
+   in that order (ids and distances); 8,192 rows appended after the
+   restart are held by a third open. Prints append MB/s, ``sync`` and
+   reload seconds. Then one 8,192-row refresh of the sort path
+   (``append_and_build_csr``) at 10,485,760 and 41,943,040 rows of
+   capacity (codes only), the measurement that decides whether the JAX
+   package's ``merge_append_csr`` is needed on this card;
 11. face (after the exhaustive phase, over its model and 8,388,608 rows):
    ``lut_build`` against its plain version at the face probed shapes
    (V=256, Dh=64, B=64; NQ 1 and 32, the probe lists of a real wave);
@@ -118,15 +148,17 @@ V=256, M=8, S=256, D=128). Phases:
    ``face_synth`` scenes, the same boxes on the card and the CPU, ms an
    image split into host pyramid, device, host NMS) and FaceResNet (card
    vs CPU forward, ms at n = 1, 8, 32); and conf/conf_search_face_local
-   .json served over HTTP (``build_searcher``, 36 scenes through
-   ``GenericExtractor`` and ``load_codes``, then the index rows through
+   .json served over HTTP (``build_searcher``, 36 scenes written as files
+   and taken by ``build_checker`` and ``build_processor`` with the face
+   keys, then ``load_codes``, then the index rows through
    ``add_codes``, ``byB64`` from 1 and 32 clients and one ``byPATH``,
    every query face found first as itself, one coalesced face wave equal
    to sequential ``search_from_feats``, ``lut_build`` launched).
 
 Before the ``kernels`` line, a ``{"train": {...}}`` line carries the stage
 seconds, the checks' numbers, the recalls, and the card's name and power
-limit. The last line is ``{"ok": true, "device": {...}}``; any failure
+limit, and an ``{"ingest": {...}}`` line the pipeline's, the refresh's
+and the code store's numbers. The last line is ``{"ok": true, "device": {...}}``; any failure
 raises and exits non-zero before it. Run from the root of a checkout:
 
     python3 chip_smoke.py
@@ -161,10 +193,35 @@ PCA = dict(rows=262_144, wave=100)
 #: the serving phase: the trained release model over the headline's
 #: 10,485,760 index rows (the PCA image of raw rows; they go in through
 #: add_codes: 10.5M base64 4096-d features do not go through sqlite), plus
-#: ``images`` seeded JPEGs and grace_hopper.jpg through a KVIndexer update
+#: the ingest pipeline's images through its store and load_codes; the
+#: first ``images`` + 1 of them are the queries. The rerank depth is
+#: raised from the conf's 1,000 to 4,096: the trained release model
+#: quantizes the 2,002 pipeline rows (unit-norm fc7 of a random net, near
+#: the centre of its training cloud) into 31 cells and 47 distinct codes,
+#: so ADC ties them, and only an exact rerank of all of them finds each
+#: query image first (with 1,000, 2 of 41 query images missed on an H100
+#: 80GB HBM3)
 SERVING = dict(conf="conf/conf_search_production.json", rows=10_485_760,
                images=40, single=16, clients=32, rounds=3, seed=0,
-               overrides={})
+               overrides={"SEARCHLOPQ_rerank_nb": 4096})
+#: the ingest pipeline (conf/conf_extraction_local.json as shipped:
+#: batch_update_size 1000, 8 fetch threads): ``images`` seeded JPEGs plus
+#: grace_hopper.jpg, one PNG, one GIF and one JPEG truncated after its
+#: header, through ``python -m ...pipeline.run_processing --once`` on the
+#: card into the serving phase's store; ``sample`` images' stored fc7 held
+#: to the card's direct ``featurize_batch`` (FC7_SAMPLE_ATOL) and to the
+#: CPU forward (FC7_RTOL/ATOL); each run_processing call may take
+#: ``timeout`` seconds
+PIPELINE = dict(conf="conf/conf_extraction_local.json", images=1999,
+                sample=16, seed=0, timeout=240)
+FC7_SAMPLE_ATOL = 1e-4
+#: the code store on the trained release model: ``rows`` in ``adds``
+#: add_codes calls, a ``wave`` of queries after the restart, ``extra`` rows
+#: appended after it; then one ``chunk``-row refresh of the sort path
+#: (``append_and_build_csr``) at each ``caps`` rows of capacity
+CODESTORE = dict(rows=1_048_576, adds=8, wave=100, quota=10_000, limit=100,
+                 extra=8192, chunk=8192, caps=(10_485_760, 41_943_040),
+                 seed=0)
 #: DeepSentibank forward timing: wave sizes, and the golden fc7 tolerance
 #: (tests/test_sentibank_weights.py:121); card vs CPU forward tolerance
 #: (tests/test_sentibank.py:106)
@@ -1963,6 +2020,263 @@ def _check_reply(reply, sha1, what):
                              f"{ids[:1]}")
 
 
+def pipeline_files(seed, n):
+    """(name, bytes) of the pipeline's input files in the order the
+    directory walk takes them: ``serving_images(seed, n)`` (grace_hopper.jpg
+    first) as JPEGs, then one PNG, one GIF and one JPEG cut at the end of
+    its SOS header (its size reads, its pixels do not)."""
+    import io
+
+    from PIL import Image
+
+    files = [(f"img_{i:05d}.jpg", b)
+             for i, b in enumerate(serving_images(seed, n))]
+    rng = np.random.RandomState(seed + 5)
+    for fmt in ("png", "gif"):
+        b = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (180, 240, 3)).astype(
+            np.uint8)).save(b, format=fmt.upper())
+        files.append((f"img_{len(files):05d}.{fmt}", b.getvalue()))
+    jpeg = serving_images(seed + 6, 1)[1]
+    sos = jpeg.index(b"\xff\xda")
+    cut = sos + 2 + ((jpeg[sos + 2] << 8) | jpeg[sos + 3])
+    files.append((f"img_{len(files):05d}_truncated.jpg", jpeg[:cut]))
+    return files
+
+
+def _run_processing(conf_path, env, timeout):
+    """``python -m columbiaimagesearch_tpu_torch.pipeline.run_processing -c
+    <conf> --once`` on the card: (seconds, stdout lines, the per-update
+    dicts it printed). The copied loop retries a failed pass forever, even
+    with ``--once``: a timeout, a nonzero exit or a retry fails."""
+    cmd = [sys.executable, "-m",
+           "columbiaimagesearch_tpu_torch.pipeline.run_processing", "-c",
+           conf_path, "--once"]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as err:
+        raise AssertionError(f"pipeline: run_processing did not end within "
+                             f"{timeout}s: {str(err.stderr)[-3000:]}")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "[run_processing] error" in proc.stderr:
+        raise AssertionError(f"pipeline: run_processing exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    updates = [json.loads(line.split(" update ", 1)[1]) for line in lines
+               if line.startswith("[run_processing] update ")]
+    return seconds, lines, updates
+
+
+def phase_pipeline(dev, card, db, weights, sd, cfg=None):
+    """The ingest path on the card into the store ``db`` (see the module
+    docstring, phase 10a). ``weights`` is the Sentibank npz the serving
+    facade loaded (``sd`` its state dict): the subprocess loads it through
+    $SENTIBANK_WEIGHTS. Returns the pipeline's images and numbers."""
+    import shutil
+
+    from columbiaimagesearch_tpu_torch.common.factory import build_indexer
+    from columbiaimagesearch_tpu_torch.common.profiling import StageTimer
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        GenericExtractor,
+        build_extr_str,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.featsio import (
+        featB64decode,
+        normfeatB64encode,
+    )
+    from columbiaimagesearch_tpu_torch.imgio.imgio import get_SHA1_from_data
+    from columbiaimagesearch_tpu_torch.models.sentibank import (
+        WEIGHTS_ENV,
+        SentibankFeaturizer,
+    )
+    from columbiaimagesearch_tpu_torch.native.imgpipe import (
+        imgpipe_available,
+    )
+    from columbiaimagesearch_tpu_torch.pipeline.processor import (
+        ExtractionProcessor,
+    )
+    from columbiaimagesearch_tpu_torch.store.kvindexer import KVIndexer
+
+    cfg = dict(PIPELINE, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = os.path.join(ROOT, "build", "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    images = os.path.join(work, "images")
+    os.makedirs(images)
+    t0 = time.perf_counter()
+    files = pipeline_files(cfg["seed"] + 3, cfg["images"])
+    for name, data in files:
+        with open(os.path.join(images, name), "wb") as f:
+            f.write(data)
+    sha1s = [get_SHA1_from_data(data) for _, data in files]
+    n_good = len(files) - 1
+    log(f"pipeline: {len(files)} files ({n_good - 2} JPEGs, a PNG, a GIF "
+        f"and {files[-1][0]}) under build/pipeline/images in "
+        f"{time.perf_counter() - t0:.2f}s")
+    with open(os.path.join(ROOT, cfg["conf"])) as f:
+        conf = json.load(f)
+    conf["CHECK_input_dir"] = images
+    conf["KVI_db_path"] = db
+    conf_path = os.path.join(work, "conf_extraction.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    env = dict(os.environ, **{WEIGHTS_ENV: weights})
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+
+    seconds, lines, per_update = _run_processing(conf_path, env,
+                                                 cfg["timeout"])
+    for line in lines:
+        if not line.startswith("[run_processing] update "):
+            log(f"pipeline: run_processing: {line}")
+    log(f"pipeline: python -m columbiaimagesearch_tpu_torch.pipeline."
+        f"run_processing -c build/pipeline/conf_extraction.json --once: "
+        f"{seconds:.2f}s for {len(files)} images, {n_good / seconds:.1f} "
+        f"img/s over the whole run (process start, weights, checker, "
+        f"processor) [{card}]")
+    for u in per_update:
+        n = u["images"]
+        log(f"pipeline: update {u['update_id'].rsplit('-', 2)[0]}: {n} "
+            f"images ({u['ok']} extracted): fetch {u.get('fetch_s', 0):.3f}s"
+            f", extract {u.get('extract_s', 0):.3f}s, write "
+            f"{u.get('write_s', 0):.3f}s; "
+            f"{n / sum(v for k, v in u.items() if k.endswith('_s')):.1f} "
+            f"img/s (host clock, in the subprocess) [{card}]")
+
+    kv = build_indexer(conf)
+    extr = build_extr_str("sentibank", "full", "image")
+    updates = [(r, c) for b in kv.get_updates_from_date(
+        "1970-01-01", extr_type=extr) for r, c in b]
+    lists = [c[kv.get_col_listsha1s()].decode().split(",")
+             for _, c in updates]
+    size = int(conf["CHECK_batch_update_size"])
+    sizes = [min(size, len(files) - lo) for lo in range(0, len(files), size)]
+    if (len(updates) != len(sizes) or len(per_update) != len(sizes)
+            or [len(x) for x in lists] != sizes
+            or sum(lists, []) != sha1s
+            or any(c.get(kv.get_col_upproc()) is None
+                   or c.get(kv.get_col_upcomp()) != b"1"
+                   for _, c in updates)):
+        raise AssertionError(f"pipeline: expected updates of {sizes} "
+                             f"images in walk order, each processed and "
+                             f"completed, got "
+                             f"{[(r, sorted(c)) for r, c in updates]}")
+    rows = dict(kv.get_rows_by_batch(sha1s, kv.table_sha1infos_name))
+    col, col_ok = f"ext:{extr}", f"ext:{extr}_processed"
+    missing = [s for s in sha1s[:n_good]
+               if col not in rows[s] or rows[s].get(col_ok) != b"1"]
+    if missing:
+        raise AssertionError(f"pipeline: {len(missing)} decodable images "
+                             f"have no fc7 column")
+    # The card's machine has no libjpeg headers, so imgpipe does not build
+    # there and PIL refuses the truncated JPEG; libjpeg would fill the
+    # missing scan with gray and extract it.
+    bad = rows[sha1s[-1]]
+    want_failed = not imgpipe_available()
+    if want_failed != (bad.get(f"ext:{extr}_failed") == b"1"
+                       and col not in bad):
+        raise AssertionError(f"pipeline: the truncated JPEG's columns "
+                             f"{sorted(bad)} (failed expected: "
+                             f"{want_failed})")
+    log(f"pipeline: store checks passed: {len(sizes)} updates of {sizes} "
+        f"images, each processed and completed; fc7 for all {n_good} "
+        f"decodable images; the truncated JPEG "
+        f"{'failed' if want_failed else 'decoded by imgpipe'}")
+
+    seconds2, lines2, per_update2 = _run_processing(conf_path, env,
+                                                    cfg["timeout"])
+    n_updates2 = sum(len(b) for b in kv.get_updates_from_date(
+        "1970-01-01", extr_type=extr))
+    if per_update2 or any("updates created" in x for x in lines2) or \
+            n_updates2 != len(sizes):
+        raise AssertionError(f"pipeline: the second --once run created or "
+                             f"processed something: {lines2[-5:]}")
+    log(f"pipeline: a second --once run created and processed nothing in "
+        f"{seconds2:.2f}s")
+
+    # fc7 of sampled images: the stored column against the card
+    # featurizer called directly on the same bytes (the processor's decode
+    # route; without imgpipe, as on the card's machine, its pixels are
+    # featurize_batch's: PIL decode, then the host Lanczos resize), and
+    # against the CPU forward of the same pixels.
+    pick = np.linspace(0, n_good - 3, cfg["sample"]).astype(int)
+    raws = [files[i][1] for i in pick]
+    stored = np.stack([featB64decode(rows[sha1s[i]][col], "sentibank")
+                       for i in pick])
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    card_f = SentibankFeaturizer(params=sd, device=dev)
+    on_card, status = card_f.featurize_buffers(raws)
+    pix, _ = card_f.decode_wave(raws)
+    cpu_f = SentibankFeaturizer(params=sd, device="cpu")
+    on_cpu = unit(cpu_f.featurize_pixel_wave(pix)[0].numpy())
+    del cpu_f
+    card_err = float(np.abs(stored - unit(on_card)).max())
+    cpu_err = float(np.abs(stored - on_cpu).max())
+    log(f"pipeline: {len(pick)} sampled images' stored fc7 (unit norm) vs "
+        f"the card's featurize_buffers on the same bytes: max_abs_err="
+        f"{card_err:.3e} (atol {FC7_SAMPLE_ATOL}); vs the CPU forward of "
+        f"the same pixels: max_abs_err={cpu_err:.3e} (rtol {FC7_RTOL}, "
+        f"atol {FC7_ATOL})")
+    if any(status) or card_err > FC7_SAMPLE_ATOL:
+        raise AssertionError("pipeline: stored fc7 differs from the card's "
+                             "featurize_buffers")
+    np.testing.assert_allclose(stored, on_cpu, rtol=FC7_RTOL, atol=FC7_ATOL)
+
+    # Where an update's time goes: the processor's stages replayed one
+    # after another in this process (the subprocess overlaps decode and
+    # forward), the writes into a scratch store.
+    proc = ExtractionProcessor(
+        KVIndexer(path=os.path.join(work, "split.db")),
+        GenericExtractor("full", "sentibank", "image", featurizer=card_f),
+        nb_threads=int(conf["PROC_nb_threads"]))
+    splits = []
+    for (uid, _), sha1_list in zip(updates, lists):
+        timer = StageTimer()
+        with timer.stage("fetch"):
+            got = kv.get_rows_by_batch(sha1_list, kv.table_sha1infos_name)
+            buffers = proc.fetch_buffers(got)
+        raws = [buffers[r].getvalue() for r, _ in got]
+        feats, status = [], []
+        for lo in range(0, len(raws), card_f.PIPELINE_CHUNK):
+            with timer.stage("decode"):
+                pix, st = card_f.decode_wave(raws[lo:lo + card_f.PIPELINE_CHUNK])
+            with timer.stage("forward"):
+                out, _ = card_f.featurize_pixel_wave(pix)
+                feats.append(out.cpu().numpy())
+                sync()
+            status.extend(st)
+        feats = np.concatenate(feats)
+        with timer.stage("encode"):
+            cols = {r: {col: normfeatB64encode(x)}
+                    for (r, _), x, st in zip(got, feats, status) if st == 0}
+        with timer.stage("write"):
+            proc.indexer.push_dict_rows(cols, kv.table_sha1infos_name)
+        t = {k: v for k, v in timer.totals.items()}
+        splits.append(dict(t, images=len(raws)))
+        log(f"pipeline: update {uid.rsplit('-', 2)[0]} replayed stage by "
+            f"stage ({len(raws)} images): buffer fetch {t['fetch']:.3f}s, "
+            f"decode and resize (host, "
+            f"{'imgpipe' if imgpipe_available() else 'PIL'}) "
+            f"{t['decode']:.3f}s, device forward (upload, preprocess, "
+            f"fc7, download) {t['forward']:.3f}s, column encode "
+            f"{t['encode']:.3f}s + sqlite write {t['write']:.3f}s; ms an "
+            f"image: {1e3 * t['fetch'] / len(raws):.3f} / "
+            f"{1e3 * t['decode'] / len(raws):.3f} / "
+            f"{1e3 * t['forward'] / len(raws):.3f} / "
+            f"{1e3 * (t['encode'] + t['write']) / len(raws):.3f} [{card}]")
+    proc.indexer._shared.close()
+    return dict(work=work, files=files, sha1s=sha1s,
+                n_rows=n_good + (not want_failed),
+                seconds=seconds, img_s=n_good / seconds,
+                per_update=per_update, splits=splits, card_err=card_err,
+                cpu_err=cpu_err)
+
+
 def phase_serving(dev, card, trained, cfg=None):
     """The release configuration served over HTTP on the trained release
     model (see the module docstring, phase 10). Returns the launch counts
@@ -1972,18 +2286,13 @@ def phase_serving(dev, card, trained, cfg=None):
 
     from columbiaimagesearch_tpu_torch.api.app import make_server
     from columbiaimagesearch_tpu_torch.common.factory import (
-        build_indexer,
         build_searcher,
         build_storer,
     )
     from columbiaimagesearch_tpu_torch.extraction.extractor import (
-        GenericExtractor,
         build_extr_str,
     )
-    from columbiaimagesearch_tpu_torch.imgio.imgio import (
-        get_buffer_from_B64,
-        get_SHA1_from_data,
-    )
+    from columbiaimagesearch_tpu_torch.imgio.imgio import get_buffer_from_B64
     from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         adc_scan_all,
@@ -1993,7 +2302,6 @@ def phase_serving(dev, card, trained, cfg=None):
     from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
     from columbiaimagesearch_tpu_torch.models.sentibank import (
         WEIGHTS_ENV,
-        SentibankFeaturizer,
         init_params,
         save_weights_npz,
     )
@@ -2021,11 +2329,6 @@ def phase_serving(dev, card, trained, cfg=None):
     save_weights_npz(sd, weights)
     old_env = os.environ.get(WEIGHTS_ENV)
     os.environ[WEIGHTS_ENV] = weights
-    featurizer = SentibankFeaturizer(params=sd, device=dev)
-    bufs = serving_images(cfg["seed"] + 3, cfg["images"])
-    sha1s = [get_SHA1_from_data(b) for b in bufs]
-    feats, status = featurizer.featurize_buffers(bufs)
-    assert not any(status) and len(set(sha1s)) == len(bufs)
 
     # The model: the trained release model, as train_index saves it.
     model = trained["release"]
@@ -2066,27 +2369,26 @@ def phase_serving(dev, card, trained, cfg=None):
         log(f"serving: {nb} index-space rows (codes + float32 rerank store) "
             f"through add_codes in {time.perf_counter() - t0:.1f}s")
 
-        # The refresh route: extracted fc7 -> KVIndexer update -> load_codes.
+        # The refresh route: the ingest pipeline fills the facade's store
+        # (the two confs share KVI_db_path), then load_codes.
+        pipe = phase_pipeline(dev, card, conf["KVI_db_path"], weights, sd)
+        bufs = [data for _, data in pipe["files"][:cfg["images"] + 1]]
+        sha1s = pipe["sha1s"][:len(bufs)]
         t0 = time.perf_counter()
-        extractor = GenericExtractor("full", "sentibank", "image",
-                                     featurizer=featurizer)
-        kv = build_indexer(conf)
-        cols = extractor.process_batch(bufs)
-        rows_kv = {}
-        for sha1, c in zip(sha1s, cols):
-            rows_kv[sha1] = dict(c, **{kv.get_col_imgurl(): f"img/{sha1}"})
-        kv.push_dict_rows(rows_kv, kv.table_sha1infos_name)
-        uid, _ = kv.get_next_update_id(extr_type=extr)
-        kv.push_dict_rows({uid: {kv.get_col_listsha1s(): ",".join(sha1s)}},
-                          kv.table_updateinfos_name)
         added = facade.load_codes()
+        sync()
+        refresh_s = time.perf_counter() - t0
         nb2 = facade.get_nb_indexed()
-        log(f"serving: GenericExtractor -> KVIndexer update -> load_codes "
-            f"added {added} rows in {time.perf_counter() - t0:.2f}s; "
-            f"nb_indexed={nb2}, has_rerank_feats={s.has_rerank_feats}")
-        if added != len(bufs) or nb2 != nb + len(bufs) or not s.has_rerank_feats:
+        log(f"serving: load_codes indexed the pipeline's "
+            f"{len(pipe['per_update'])} updates into the {nb}-row index: "
+            f"added {added} rows in {refresh_s:.2f}s (fc7 from sqlite, PCA "
+            f"and encode on the card, one refresh); nb_indexed={nb2}, "
+            f"has_rerank_feats={s.has_rerank_feats} [{card}]")
+        if (added != pipe["n_rows"] or nb2 != nb + added
+                or not s.has_rerank_feats):
             raise AssertionError("serving: the refresh did not index the "
-                                 "images with their rerank features")
+                                 "pipeline's images with their rerank "
+                                 "features")
         b64 = [base64.b64encode(b).decode() for b in bufs]
         forms = [_form(x) for x in b64]
 
@@ -2149,7 +2451,8 @@ def phase_serving(dev, card, trained, cfg=None):
                                          f"{errs[:3]}")
                 rounds.append(res)
                 server_ms.extend(srv)
-            path_ms, reply = _post(port, "byPATH", _form(HOPPER))
+            path_ms, reply = _post(port, "byPATH", _form(os.path.join(
+                pipe["work"], "images", pipe["files"][0][0])))
             _check_reply(reply, sha1s[0], "byPATH grace_hopper.jpg")
             sync()
         finally:
@@ -2244,14 +2547,162 @@ def phase_serving(dev, card, trained, cfg=None):
             f"answers without errors, each with its query image first; "
             f"phase {time.perf_counter() - t_phase:.1f}s")
         return dict(launches=launches, first_ms=first_ms, single=single,
-                    conc=conc, sizes=sizes)
+                    conc=conc, sizes=sizes, refresh_s=refresh_s,
+                    pipeline={k: pipe[k] for k in (
+                        "seconds", "img_s", "per_update", "splits",
+                        "card_err", "cpu_err")})
     finally:
         facade.request_batcher.close()
         shutil.rmtree(work, ignore_errors=True)     # the 262 MB weights file
+        shutil.rmtree(os.path.join(ROOT, "build", "pipeline"),
+                      ignore_errors=True)
         if old_env is None:
             os.environ.pop(WEIGHTS_ENV, None)
         else:
             os.environ[WEIGHTS_ENV] = old_env
+
+
+def phase_codestore(dev, card, trained, cfg=None):
+    """The native code store under ``LOPQSearcherTorch`` on the trained
+    release model (see the module docstring, phase 10b). Returns its
+    numbers."""
+    import shutil
+
+    from columbiaimagesearch_tpu_torch.common.profiling import StageTimer
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+    from columbiaimagesearch_tpu_torch.native.codestore import ID_LEN
+
+    cfg = dict(CODESTORE, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    work = os.path.join(ROOT, "build", "codestore")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "codes.cs")
+    model = trained["release"]
+    n, extra = cfg["rows"], cfg["extra"]
+    try:
+        rows = index_rows(n + extra, trained["src"], model)
+        coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                                   rows, chunk=8192)
+        coarse = coarse.cpu().numpy()
+        fine = fine.to(torch.uint8).cpu().numpy()
+        del rows
+        ids = np.array([f"r{i}" for i in range(n + extra)], dtype=object)
+        queries = raw_rows(cfg["wave"], trained["src"])
+
+        timer = StageTimer()
+        first = LOPQSearcherTorch(model, codestore_path=path)
+        store = first._codestore
+        for name in ("append", "sync"):
+            def timed(*a, _fn=getattr(store, name), _name=name):
+                with timer.stage(_name):
+                    return _fn(*a)
+            setattr(store, name, timed)
+        t0 = time.perf_counter()
+        bounds = np.linspace(0, n, cfg["adds"] + 1).astype(int)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            first.add_codes((coarse[lo:hi], fine[lo:hi]), ids[lo:hi])
+        add_s = time.perf_counter() - t0
+        if first.get_nb_indexed() != n or len(store) != n:
+            raise AssertionError("codestore: the first searcher lost rows")
+        store.close()
+        del first
+        mb = n * (4 + model.M + ID_LEN) / 1e6
+        append_s, sync_s = timer.totals["append"], timer.totals["sync"]
+        log(f"codestore: {n} rows in {cfg['adds']} add_codes calls "
+            f"({add_s:.2f}s): append {append_s:.3f}s ({mb / append_s:.1f} "
+            f"MB/s of {mb:.1f} MB records), sync {sync_s:.3f}s in all, "
+            f"{sync_s / cfg['adds']:.3f}s a call (cell sort + msync) "
+            f"[{card}]")
+
+        t0 = time.perf_counter()
+        again = LOPQSearcherTorch(model, codestore_path=path)
+        open_s = time.perf_counter() - t0
+        nb = again.get_nb_indexed()
+        sync()
+        reload_s = time.perf_counter() - t0
+        if nb != n:
+            raise AssertionError(f"codestore: the restart indexed {nb} rows")
+        cells, fcodes, rids = again._codestore.read_all()
+        fresh = LOPQSearcherTorch(model)
+        fresh.add_codes((np.stack([cells // model.V, cells % model.V], 1),
+                         fcodes), rids)
+        kw = dict(quota=cfg["quota"], limit=cfg["limit"], with_dists=True,
+                  with_codes=False)
+        got = again.search_batch(queries, **kw)
+        want = fresh.search_batch(queries, **kw)
+        worst = 0.0
+        for (rg, _), (rw, _) in zip(got, want):
+            if [r.id for r in rg] != [r.id for r in rw] or not rg:
+                raise AssertionError("codestore: the restarted searcher's "
+                                     "ids differ from a fresh searcher fed "
+                                     "read_all()'s rows")
+            worst = max(worst, float(np.abs(np.array([r.dist for r in rg])
+                                            - np.array([r.dist for r in rw])
+                                            ).max()))
+        if worst > 0:
+            raise AssertionError(f"codestore: distances differ by {worst}")
+        del fresh
+        log(f"codestore: restart: open + read_all {open_s:.2f}s, reload "
+            f"to the card (first refresh) {reload_s:.2f}s for {nb} rows; "
+            f"its {len(queries)}-query wave (quota {cfg['quota']}, limit "
+            f"{cfg['limit']}) equals a fresh searcher fed read_all()'s rows "
+            f"in its order: ids equal, distances equal [{card}]")
+        t0 = time.perf_counter()
+        again.add_codes((coarse[n:], fine[n:]), ids[n:])
+        extra_s = time.perf_counter() - t0
+        again._codestore.close()
+        del again
+        third = LOPQSearcherTorch(model, codestore_path=path)
+        nb3 = third.get_nb_indexed()
+        held = len(third._codestore)
+        third._codestore.close()
+        del third
+        if nb3 != n + extra or held != n + extra:
+            raise AssertionError(f"codestore: the third open holds {nb3} "
+                                 f"rows ({held} records)")
+        log(f"codestore: {extra} rows appended after the restart in "
+            f"{extra_s:.3f}s; a third open holds {nb3}")
+        return dict(rows=n, append_mb_s=mb / append_s, sync_s=sync_s,
+                    open_s=open_s, reload_s=reload_s, extra_s=extra_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_refresh_sort(dev, card, cfg=None):
+    """One ``chunk``-row refresh of the port's sort path
+    (``append_and_build_csr``: write the chunk, stable radix sort of the
+    cells, gather the codes, the offsets table) at each capacity of
+    CODESTORE["caps"], codes only, V and M of the headline: the JAX
+    searcher switches to ``merge_append_csr`` above 32M rows of capacity
+    because XLA's sort was slow on its chip (JAX searcher.py:638-641)."""
+    from columbiaimagesearch_tpu_torch.index.csr import append_and_build_csr
+
+    cfg = dict(CODESTORE, **(cfg or {}))
+    V, M, k = HEADLINE["V"], HEADLINE["M"], cfg["chunk"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 21)
+    out = {}
+    for cap in cfg["caps"]:
+        cells = torch.randint(0, V * V, (cap,), generator=g, device=dev,
+                              dtype=torch.int32)
+        cells[cap - k:] = V * V                   # the free tail: sentinel
+        fine = torch.randint(0, 256, (cap, M), generator=g, device=dev,
+                             dtype=torch.uint8)
+        new_c = torch.randint(0, V * V, (k,), generator=g, device=dev,
+                              dtype=torch.int32)
+        new_f = torch.randint(0, 256, (k, M), generator=g, device=dev,
+                              dtype=torch.uint8)
+        ms = float(np.median(time_ms(lambda: append_and_build_csr(
+            cells, fine, new_c, new_f, cap - k, V), 5)))
+        out[cap] = ms
+        log(f"refresh sort: one {k}-row append_and_build_csr at "
+            f"{cap} rows of capacity (V={V}, M={M}, "
+            f"{cap * (4 + M) / 1e9:.2f} GB of codes): {ms:.3f} ms (p50 of "
+            f"5, CUDA events around each call) [{card}]")
+        del cells, fine, new_c, new_f
+    return out
 
 
 def face_scene_png(seed):
@@ -2514,18 +2965,20 @@ def phase_face_serving(dev, card, index, cfg=None):
     """The face configuration (conf/conf_search_face_local.json as shipped)
     served over HTTP: the face model in the storer, the facade from
     ``common.factory.build_searcher``, ``scenes`` face_synth scenes
-    through ``GenericExtractor``, a KVIndexer update and ``load_codes``,
-    then the face index's rows through ``add_codes`` (no sqlite rows: they
+    written as files and taken by the conf's checker and processor
+    (``build_checker``, ``build_processor`` with the face keys, on the
+    card), then ``load_codes``, then the face index's rows through ``add_codes`` (no sqlite rows: they
     keep their ADC distance in the host rerank); then
     ``byB64`` from 1 and from ``clients`` concurrent clients and one
     ``byPATH``. Returns the launch count and numbers."""
-    import io
     import shutil
     import threading
 
     from columbiaimagesearch_tpu_torch.api.app import make_server
     from columbiaimagesearch_tpu_torch.common.factory import (
+        build_checker,
         build_indexer,
+        build_processor,
         build_searcher,
         build_storer,
     )
@@ -2533,13 +2986,9 @@ def phase_face_serving(dev, card, index, cfg=None):
         FaceDetector,
     )
     from columbiaimagesearch_tpu_torch.extraction.extractor import (
-        GenericExtractor,
         build_extr_str,
     )
-    from columbiaimagesearch_tpu_torch.imgio.imgio import (
-        get_buffer_from_B64,
-        get_SHA1_from_data,
-    )
+    from columbiaimagesearch_tpu_torch.imgio.imgio import get_SHA1_from_data
     from columbiaimagesearch_tpu_torch.index.lut import build_luts
     from columbiaimagesearch_tpu_torch.models.face import FaceEmbedder
 
@@ -2577,27 +3026,41 @@ def phase_face_serving(dev, card, index, cfg=None):
         # a quota-crossing cell is clipped at Q candidate slots (the JAX
         # slot semantics): this index's cells hold up to 32,768 rows, and
         # bulk rows added first would fill the Q slots of the face cells.
+        # The scenes go in as files through the ingest pipeline (the
+        # checker and the processor built from the conf with the face
+        # keys, extracting on the card), then load_codes.
         bufs = [face_scene_png(2000 + i) for i in range(cfg["scenes"])]
         sha1s = [get_SHA1_from_data(b) for b in bufs]
+        scenes = os.path.join(work, "scenes")
+        os.makedirs(scenes)
+        for i, b in enumerate(bufs):
+            with open(os.path.join(scenes, f"scene_{i:03d}.png"), "wb") as f:
+                f.write(b)
+        conf.update({f"{p}_{k}": "face" for p in ("EXTR", "CHECK")
+                     for k in ("featurizer_type", "detector_type",
+                               "input_type")})
+        conf["CHECK_input_dir"] = scenes
         t0 = time.perf_counter()
-        extractor = GenericExtractor("face", "face", "face",
-                                     detector=facade.detector,
-                                     featurizer=facade.featurizer)
-        cols = extractor.process_batch([io.BytesIO(b) for b in bufs])
-        extract_s = time.perf_counter() - t0
         kv = build_indexer(conf)
-        kv.push_dict_rows({sha1: dict(c, **{kv.get_col_imgurl():
-                                            f"img/{sha1}"})
-                           for sha1, c in zip(sha1s, cols)},
-                          kv.table_sha1infos_name)
-        uid, _ = kv.get_next_update_id(extr_type=extr)
-        kv.push_dict_rows({uid: {kv.get_col_listsha1s(): ",".join(sha1s)}},
-                          kv.table_updateinfos_name)
-        n_faces = sum(k.count("_") > 4 and not k.endswith("_processed")
-                      for c in cols for k in c)
+        created = build_checker(conf, indexer=kv).run_once()
+        processor = build_processor(conf, indexer=kv, device=dev)
+        processed = processor.run_once()
+        extract_s = time.perf_counter() - t0
+        rows = dict(kv.get_rows_by_batch(sha1s, kv.table_sha1infos_name))
+        prefix = f"ext:{extr}_"
+        n_faces = sum(k.startswith(prefix) and not k.endswith(
+            ("_processed", "_updateid", "_failed"))
+            for c in rows.values() for k in c)
+        if (len(created) != 1 or processed != created
+                or processor.extractor.featurizer.device != dev
+                or any(c.get(f"ext:{extr}_processed") != b"1"
+                       for c in rows.values()) or len(rows) != len(bufs)):
+            raise AssertionError("face serving: the checker and processor "
+                                 "did not extract every scene on the card")
         added = facade.load_codes()
-        log(f"face serving: GenericExtractor over {len(bufs)} scenes "
-            f"({n_faces} faces) in {extract_s:.2f}s -> KVIndexer update -> "
+        log(f"face serving: build_checker + build_processor over "
+            f"{len(bufs)} scene files ({n_faces} faces, update "
+            f"{created[0].rsplit('-', 2)[0]}) in {extract_s:.2f}s -> "
             f"load_codes added {added}")
         t0 = time.perf_counter()
         s.add_codes((index["coarse"], index["fine"]))
@@ -2609,9 +3072,7 @@ def phase_face_serving(dev, card, index, cfg=None):
             raise AssertionError("face serving: the refresh did not index "
                                  "the detected faces")
         forms = [_form(base64.b64encode(b).decode()) for b in bufs]
-        scene0 = os.path.join(work, "scene0.png")
-        with open(scene0, "wb") as f:
-            f.write(bufs[0])
+        scene0 = os.path.join(scenes, "scene_000.png")
 
         server = make_server(facade, port=0, host="127.0.0.1")
         port = server.server_address[1]
@@ -2765,6 +3226,9 @@ def main():
     phase_fc7(dev, card)
     serving = phase_serving(dev, card, trained)
     torch.cuda.empty_cache()
+    codestore = phase_codestore(dev, card, trained)
+    codestore["refresh_sort_ms"] = phase_refresh_sort(dev, card)
+    torch.cuda.empty_cache()
     ex = phase_exhaustive(dev, card, trained["face"])
     index = ex.pop("index")
     torch.cuda.empty_cache()
@@ -2785,6 +3249,10 @@ def main():
     log(json.dumps({"train": dict(
         trained["numbers"], plain=plain, train_index=train_index,
         recall=recall, card=name.strip(), power_limit=power.strip())}))
+    log(json.dumps({"ingest": dict(
+        serving["pipeline"], refresh_s=serving["refresh_s"],
+        codestore=codestore, card=name.strip(),
+        power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",

@@ -8,8 +8,10 @@ lookup tables (``csrc/lut_build.cu``) and the exhaustive ADC scan
 (``csrc/adc_scan.cu``). It also serves: image -> DeepSentibank fc7, the
 fused raw-feature query, the ``SearcherLOPQ`` facade and the HTTP API,
 and face search (conv-HOG detection -> 150x150 chips -> 128-d FaceResNet
-embeddings -> the probed query), and trains LOPQ models on the card
-(k-means, PCA, local rotations).
+embeddings -> the probed query), trains LOPQ models on the card
+(k-means, PCA, local rotations), and ingests: image directories or bus
+messages -> updates -> features extracted on the card -> the KV store
+(``pipeline/``), with the codes persisted in the native code store.
 It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
@@ -38,9 +40,11 @@ Layout (JAX counterpart in brackets):
   featurizer; [models/face.py, face_detector.py, face_dlib.py,
   face_align.py, face_synth.py]: the face embedders, detector, aligner
   and scene renderer (inference only); ``native/`` [native/build.py,
-  imgpipe.py]: the host image
-  decoder; ``imgio/``, ``extraction/``, ``store/``, ``common/``,
-  ``searcher/``, ``api/`` [the same names]: the serving stack.
+  imgpipe.py, codestore.py]: the host image decoder and the code store;
+  ``imgio/``, ``extraction/``, ``store/``, ``common/``, ``searcher/``,
+  ``api/`` [the same names]: the serving stack; ``pipeline/`` [pipeline/,
+  and scripts/run_processing.py, run_images_pusher.py, bus_printer.py as
+  ``python -m`` entry points]: ingest.
 """
 
 from columbiaimagesearch_tpu_torch import device  # noqa: F401  (TF32 off)

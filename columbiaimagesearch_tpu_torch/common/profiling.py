@@ -1,0 +1,108 @@
+"""Tracing and throughput statistics (port of
+columbiaimagesearch_tpu/common/profiling.py:1-97).
+
+The reference instruments everything with wall-clock prints — per-stage
+detect/featurize/search timings (reference: searcher/generic_searcher.py:
+365-389, searcher_lopqhbase.py:858-928) and every-1000-messages throughput
+stats in the ingesters (reference: ingester/kafka_ingester.py:117-184
+``toc_process_ok``/``print_stats``). This module provides the structured
+equivalents plus a ``torch.profiler`` trace context for device-level
+timelines.
+
+``StageTimer`` and ``ThroughputStats`` are copies (profiling.py:17-84).
+``device_trace`` replaces the JAX ``jax.profiler`` context (:87-97): it
+records the host and the card with ``torch.profiler`` and writes a chrome
+trace into ``logdir``.
+"""
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict
+
+
+class StageTimer:
+    """Accumulates per-stage wall-clock times; drop-in for the reference's
+    scattered ``start = time.time()`` prints."""
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - start
+            self.totals[name] += dt
+            self.counts[name] += 1
+
+    def summary(self):
+        return {
+            name: {"total_s": round(self.totals[name], 4),
+                   "count": self.counts[name],
+                   "mean_ms": round(1000 * self.totals[name]
+                                    / max(self.counts[name], 1), 3)}
+            for name in sorted(self.totals)
+        }
+
+    def report(self):
+        return json.dumps(self.summary())
+
+
+class ThroughputStats:
+    """ok/skip/fail counters with periodic rate reporting
+    (the ingester ``print_stats`` role)."""
+
+    def __init__(self, name="stats", report_every=1000, printer=print):
+        self.name = name
+        self.report_every = report_every
+        self.printer = printer
+        self.ok = self.skipped = self.failed = 0
+        self.start = time.time()
+
+    def _maybe_report(self):
+        total = self.ok + self.skipped + self.failed
+        if self.report_every and total % self.report_every == 0:
+            self.printer(f"[{self.name}] {self.report()}")
+
+    def toc_ok(self, n=1):
+        self.ok += n
+        self._maybe_report()
+
+    def toc_skip(self, n=1):
+        self.skipped += n
+        self._maybe_report()
+
+    def toc_fail(self, n=1):
+        self.failed += n
+        self._maybe_report()
+
+    def report(self):
+        elapsed = max(time.time() - self.start, 1e-9)
+        total = self.ok + self.skipped + self.failed
+        return json.dumps({
+            "ok": self.ok, "skipped": self.skipped, "failed": self.failed,
+            "elapsed_s": round(elapsed, 1),
+            "rate_per_s": round(total / elapsed, 2),
+        })
+
+
+@contextlib.contextmanager
+def device_trace(logdir, name="trace"):
+    """``torch.profiler`` over the block, host and card (the card only
+    when CUDA is available); on exit the chrome trace goes to
+    ``<logdir>/<name>.json``. Yields the profiler, whose
+    ``key_averages()`` sums the recorded ops."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))

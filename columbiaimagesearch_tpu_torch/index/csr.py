@@ -5,7 +5,9 @@ Codes sorted by cell id (stable argsort, so rows of one cell keep their
 insertion order) plus a ``[V^2 + 1]`` int32 offsets table; unoccupied
 capacity rows carry the sentinel cell ``V*V``, which sorts after every real
 cell and is left out of the offsets. ``merge_append_csr`` (used by the JAX
-searcher only above 32M rows of capacity) is not ported yet.
+searcher only above 32M rows of capacity, where XLA's sort was slow) is
+not ported: ``torch.sort`` refreshes 8,192 rows at 41,943,040 rows of
+capacity in milliseconds on the H100 (ROADMAP.md, "Do not port").
 
 Where the JAX functions donated their capacity buffers, the port writes
 into them in place.

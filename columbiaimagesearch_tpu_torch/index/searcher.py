@@ -39,8 +39,9 @@ runs every rung once before traffic. Search entry points run under
 run in the coalescer's and the HTTP handlers' threads); the device buffers
 are built outside it, so later in-place appends stay legal.
 
-``codestore_path``, the bfloat16 rerank store, ``get_cell`` and wide-V
-mode (V >= 8192) are not ported yet (ROADMAP.md).
+``codestore_path`` persists the codes in the native store
+(searcher.py:405-416, 486-492). The bfloat16 rerank store, ``get_cell``
+and wide-V mode (V >= 8192) are not ported yet (ROADMAP.md).
 """
 
 import threading
@@ -148,13 +149,11 @@ class LOPQSearcherTorch:
 
     def __init__(self, model, probe_width=None, codestore_path=None,
                  rerank_dtype="auto", capacity_hint=0):
-        """The JAX searcher's arguments in its order (searcher.py:340);
-        ``codestore_path`` and the bfloat16 rerank store are not ported
-        yet and raise."""
-        if codestore_path is not None:
-            raise NotImplementedError(
-                "codestore_path: the native code store is not ported yet "
-                "(ROADMAP.md, still to port #6)")
+        """The JAX searcher's arguments in its order (searcher.py:340).
+        ``codestore_path`` opens the durable native store
+        (``native/codestore.py``): rows it holds are queued for the first
+        refresh, and every ``add_codes`` appends to it. The bfloat16 rerank
+        store is not ported yet and raises."""
         if rerank_dtype not in ("auto", "float32"):
             raise NotImplementedError(
                 f"rerank_dtype={rerank_dtype!r}: only the float32 rerank "
@@ -198,6 +197,22 @@ class LOPQSearcherTorch:
         #: wave-cap divisor, doubled each time a launch runs out of memory
         self._wave_oom_shrink = 1
         self.probe_stats = {"waves": 0, "escalated_queries": 0}
+        self._codestore = None
+        if codestore_path is not None:
+            # Durable native store (native/codestore.cpp): appends persist,
+            # restarts reload the cell-sorted records in one pass
+            # (searcher.py:405-416).
+            from columbiaimagesearch_tpu_torch.native.codestore import (
+                CodeStore,
+            )
+
+            self._codestore = CodeStore(codestore_path, m=model.M)
+            if len(self._codestore):
+                cells, fine, ids = self._codestore.read_all()
+                ids_arr = np.empty(len(ids), dtype=object)
+                ids_arr[:] = ids
+                self._pending.append(
+                    (cells.astype(np.int64), fine, ids_arr, None))
 
     def get_nb_indexed(self):
         self._pack()
@@ -254,6 +269,11 @@ class LOPQSearcherTorch:
         with self._mutlock:
             self._pending.append((cells, fine.astype(np.uint8), ids_arr,
                                   feats))
+            if self._codestore is not None:
+                self._codestore.append(cells.astype(np.uint32),
+                                       fine.astype(np.uint8),
+                                       [str(i) for i in ids_arr])
+                self._codestore.sync()
             self._dirty = True
 
     def add_data(self, data, ids=None, num_procs=1, store_feats=False):

@@ -1,3 +1,5 @@
-"""ctypes bindings for the repository's native C++ image pipeline
-(``native/imgpipe.cpp``), built with g++ at first use into
-``build/native/`` (port of columbiaimagesearch_tpu/native/__init__.py)."""
+"""ctypes bindings for the repository's native C++ host code, built with
+g++ at first use into ``build/native/`` (port of
+columbiaimagesearch_tpu/native/__init__.py): the image pipeline
+(``native/imgpipe.cpp``, ``native/imgpipe.py``) and the persistent PQ-code
+store (``native/codestore.cpp``, ``native/codestore.py``)."""

@@ -5,8 +5,9 @@ columbiaimagesearch_tpu/native/build.py:1-41).
 into ``build/native/lib<name>-<key>.so``, keyed by a hash of the source and
 the flags, and loaded with ctypes. The JAX loader builds next to the
 sources; the port never writes into ``native/``. As in the JAX package, a
-missing toolchain or library returns None and the caller takes its
-per-image PIL path: these are host decoders, not device kernels.
+missing toolchain or library returns None: the image decoder then takes its
+per-image PIL path, and ``CodeStore`` raises. These are host libraries, not
+device kernels.
 """
 
 import ctypes

@@ -26,8 +26,9 @@ conf/conf_search_face_local.json) runs on the port's conv-HOG detector and
 FaceResNet embedder (models/face_detector.py, models/face.py): each
 detected face is a query of the wave, with ids ``<sha1>_<bbox>``. Not
 ported yet, each raising ``NotImplementedError`` (ROADMAP.md, still to
-port): ``sharded=True`` (#14), ``codestore_path`` (#6) and the bfloat16
-rerank store (``rerank_dtype="bfloat16"``; Queue 1 #8).
+port): ``sharded=True`` (#14) and the bfloat16 rerank store
+(``rerank_dtype="bfloat16"``; Queue 1 #8). ``codestore_path`` backs the
+probed searcher with the native code store (searcher_lopq.py:52, 134).
 ``rerank_dtype="auto"`` is the float32 store, as the JAX plan picks while
 the store fits.
 """
@@ -62,10 +63,6 @@ class SearcherLOPQ(GenericSearcher):
             raise NotImplementedError(
                 "sharded=True: multi-GPU serving is not ported yet "
                 "(ROADMAP.md, still to port #14)")
-        if codestore_path is not None:
-            raise NotImplementedError(
-                "codestore_path: the native code store is not ported yet "
-                "(ROADMAP.md, still to port #6)")
         if rerank_dtype not in ("auto", "float32"):
             raise NotImplementedError(
                 f"rerank_dtype={rerank_dtype!r}: only the float32 rerank "
@@ -153,6 +150,7 @@ class SearcherLOPQ(GenericSearcher):
             return
         self.searcher = LOPQSearcherTorch(
             self.model, probe_width=self.probe_width,
+            codestore_path=self.codestore_path,
             capacity_hint=self.capacity_hint)
 
     def get_train_features(self, nb_features, start_date=START_DATE):

@@ -289,7 +289,6 @@ def test_unported_options_raise(store):
                 detector_type="full", featurizer=_NoFeaturizer(),
                 device="cpu")
     for kw, match in ((dict(sharded=True), "#14"),
-                      (dict(codestore_path="x"), "#6"),
                       (dict(rerank_dtype="bfloat16"), "Queue 1 #8")):
         with pytest.raises(NotImplementedError, match=match):
             SearcherLOPQ(**base, **kw)

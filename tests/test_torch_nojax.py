@@ -5,7 +5,9 @@ search), trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
 evaluates one, runs the face embedder and the detector's device half, and
 never
 loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
-the image routes import, lazily."""
+the image routes import, lazily. Then one checker + processor pass of the
+ingest pipeline over three images on the CPU, and a searcher backed by
+the native code store, still without JAX."""
 
 import os
 import subprocess
@@ -36,7 +38,15 @@ from columbiaimagesearch_tpu_torch.models import (face, face_align,
                                                    face_detector, face_dlib,
                                                    face_synth, layers,
                                                    preprocess, sentibank)
-from columbiaimagesearch_tpu_torch.native import imgpipe
+from columbiaimagesearch_tpu_torch.native import codestore, imgpipe
+from columbiaimagesearch_tpu_torch.common import profiling
+from columbiaimagesearch_tpu_torch import pipeline
+from columbiaimagesearch_tpu_torch.pipeline import (bus_printer, cdr_ingester,
+                                                    checker, downloader,
+                                                    ingest, kafka_backend,
+                                                    kinesis_backend,
+                                                    processor, run_images_pusher,
+                                                    run_processing)
 from columbiaimagesearch_tpu_torch.searcher import (generic_searcher,
                                                     searcher_lopq)
 
@@ -104,12 +114,40 @@ bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "columbiaimagesearch_tpu"
        or k.startswith("columbiaimagesearch_tpu.")]
 assert not bad, bad
+import os, tempfile
+from PIL import Image
+work = tempfile.mkdtemp(dir=os.environ["NOJAX_TMP"])
+os.makedirs(os.path.join(work, "imgs"))
+for i in range(3):
+    Image.fromarray(rng.randint(0, 255, (40, 50, 3)).astype(np.uint8)).save(
+        os.path.join(work, "imgs", f"i{i}.png"))
+conf = {"CHECK_input_dir": os.path.join(work, "imgs"),
+        "CHECK_batch_update_size": 2, "PROC_nb_threads": 2,
+        "KVI_db_path": os.path.join(work, "kv.db")}
+kv = factory.build_indexer(conf)
+created = factory.build_checker(conf, indexer=kv).run_once()
+done = factory.build_processor(conf, indexer=kv, device="cpu").run_once()
+assert len(created) == 2 and sorted(done) == sorted(created), (created, done)
+sids, fts = kv.get_features_from_sha1s(
+    [r for r, _ in kv.scan_from_row(kv.table_sha1infos_name)],
+    "sentibank_feat_full_image")
+assert len(sids) == 3 and fts[0].shape == (4096,)
+cs = searcher.LOPQSearcherTorch(m, codestore_path=os.path.join(work, "c.cs"))
+cs.add_data(X[:100])
+cs._codestore.close()
+assert searcher.LOPQSearcherTorch(
+    m, codestore_path=os.path.join(work, "c.cs")).get_nb_indexed() == 100
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k.split(".")[0] in ("flax", "pandas")
+       or k == "columbiaimagesearch_tpu"
+       or k.startswith("columbiaimagesearch_tpu.")]
+assert not bad, bad
 print("ok", visited)
 """
 
 
-def test_port_imports_and_searches_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+def test_port_imports_and_searches_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, NOJAX_TMP=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -311,8 +311,9 @@ def test_add_data_takes_jax_positional_order(corpus):
 
 def test_init_takes_jax_positional_order(corpus, tmp_path):
     """A third positional argument is ``codestore_path`` on both searchers
-    (JAX searcher.py:340); the port raises for it and for the bfloat16
-    store, which it has not ported, and takes ``capacity_hint`` fifth."""
+    (JAX searcher.py:340) and opens the native code store; the port raises
+    for the bfloat16 store, which it has not ported, and takes
+    ``capacity_hint`` fifth."""
     import inspect
 
     from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
@@ -322,8 +323,9 @@ def test_init_takes_jax_positional_order(corpus, tmp_path):
     assert names == list(
         inspect.signature(LOPQSearcherTPU.__init__).parameters)
     assert names[3] == "codestore_path"
-    with pytest.raises(NotImplementedError, match="codestore_path"):
-        LOPQSearcherTorch(tm, None, str(tmp_path / "codes"))
+    cs = LOPQSearcherTorch(tm, None, str(tmp_path / "codes"))
+    assert cs._codestore is not None and cs._codestore.m == tm.M
+    cs._codestore.close()
     with pytest.raises(NotImplementedError, match="bfloat16"):
         LOPQSearcherTorch(tm, None, None, "bfloat16")
     s = LOPQSearcherTorch(tm, 8, None, "float32", 50_000)
