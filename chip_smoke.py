@@ -76,6 +76,26 @@ V=256, M=8, S=256, D=128). Phases:
    rows through
    ``add_data(store_feats=True)`` and a 100-query rerank wave, held equal
    to a plain-model searcher given the projected rows and queries;
+7a. sharded (SHARDED), on the main path's rows, codes and tables (nothing
+   encoded again): ``ShardedLOPQSearcher`` on one real shard
+   (``make_mesh()``: every visible card) and on 4 logical shards of the
+   card; waves of 100 with and without rerank on the natural ladder and
+   one pinned to rung 64, where ``lut_build`` must launch and the ids
+   equal a replay with the plain LUT (but rounding ties; 1e-4 absolute);
+   100 index rows as queries, whose top-1 on the logical shards equals
+   the one-shard index's wherever that returns the row itself, and every
+   id both return at the same distance (rtol 1e-5); recall@{1, 10} and
+   overlap@10 of both against the exact neighbours; the brute plan across
+   the logical shards equal to the single store's ``brute_query_batch``
+   (but rows at equal float32 distances); ``dp_encode`` of 1,048,576 rows
+   on 1 and 4 shards equal to ``predict_batch``; one ``dp_lloyd_step`` at
+   V=4096 on 2,000,000 x 128 rows equal to the single-device step (rtol
+   1e-5); and a bfloat16 ``LOPQSearcherTorch`` (5.37 GB against 10.74;
+   the ``auto`` plan picks float32 on the card; every exact distance equal
+   to a float32 recompute from the rounded rows, rtol 1e-5; overlap@10
+   with the float32 store). Traces of one rerank wave unsharded, on one
+   shard and on 4 logical shards, and a host profile of the one-shard
+   wave;
 8. exhaustive: the face-search configuration (conf/conf_search_face_local
    .json, 128-d embeddings) with the trained face model, 8,388,608 rows
    of the face mixture through
@@ -107,6 +127,13 @@ V=256, M=8, S=256, D=128). Phases:
    first; one coalesced wave's ids equal ``search_batch`` on the same fc7
    normalized on the host; ``lut_build`` must launch. A torch.profiler
    trace of one 32-request wave gives device busy time and idle share;
+   then conf/conf_search_sharded.json (``sharded``) through
+   ``build_searcher`` on the same store: the trained release model under
+   the conf's model string, the bulk rows through ``add_codes(...,
+   feats=...)``, the pipeline's rows through ``load_codes`` (the conf
+   keeps no device rerank store, so the rerank runs on the host), the
+   serving phase's rerank depth; ``byB64`` from 1 and 32 clients, each
+   query image first;
 10a. pipeline (inside 10, once the facade holds the bulk rows): under
    ``build/pipeline/``, 2,000 JPEGs (grace_hopper.jpg and the seeded ones
    of ``serving_images``), a PNG, a GIF and a JPEG truncated after its
@@ -148,7 +175,7 @@ V=256, M=8, S=256, D=128). Phases:
    ``face_synth`` scenes, the same boxes on the card and the CPU, ms an
    image split into host pyramid, device, host NMS) and FaceResNet (card
    vs CPU forward, ms at n = 1, 8, 32); and conf/conf_search_face_local
-   .json served over HTTP (``build_searcher``, 36 scenes written as files
+   .json served over HTTP (``build_searcher``, 18 scenes written as files
    and taken by ``build_checker`` and ``build_processor`` with the face
    keys, then ``load_codes``, then the index rows through
    ``add_codes``, ``byB64`` from 1 and 32 clients and one ``byPATH``,
@@ -157,8 +184,9 @@ V=256, M=8, S=256, D=128). Phases:
 
 Before the ``kernels`` line, a ``{"train": {...}}`` line carries the stage
 seconds, the checks' numbers, the recalls, and the card's name and power
-limit, and an ``{"ingest": {...}}`` line the pipeline's, the refresh's
-and the code store's numbers. The last line is ``{"ok": true, "device": {...}}``; any failure
+limit, an ``{"ingest": {...}}`` line the pipeline's, the refresh's
+and the code store's numbers, and a ``{"sharded": {...}}`` line the
+sharded phases' numbers. The last line is ``{"ok": true, "device": {...}}``; any failure
 raises and exits non-zero before it. Run from the root of a checkout:
 
     python3 chip_smoke.py
@@ -230,6 +258,28 @@ GOLDEN_RTOL, GOLDEN_ATOL = 2e-2, 2e-4
 FC7_RTOL, FC7_ATOL = 2e-3, 2e-3
 #: coalesced wave vs search_batch on host-normalized rows: distances
 SERVING_DIST_ATOL = 1e-4
+#: the sharded phase on the main path's 10,485,760 rows of the trained
+#: release model: one real shard (every visible card: one on a one-card
+#: machine) and ``shards`` logical shards on the first card; a wave pinned
+#: to the LUT rung ``probe`` (the trained model's floor starts at rung 256,
+#: which builds no tables); ``self_queries`` index rows as queries (their
+#: nearest row is themselves); ``dp_encode`` of ``dp_rows`` rows and one
+#: ``dp_lloyd_step`` at V=4096 on the first half of ``lloyd_rows`` rows
+#: (drawn as the 2,000,000 training rows are); and
+#: conf/conf_search_sharded.json served over HTTP inside the serving phase
+#: (its pipeline store), ``single`` requests from one client and one round
+#: of ``clients``
+SHARDED = dict(shards=4, probe=64, self_queries=100, dp_rows=1_048_576,
+               lloyd_rows=2_000_000, conf="conf/conf_search_sharded.json",
+               single=4, clients=32, seed=0)
+#: the pinned LUT wave against its replay with the plain LUT (absolute)
+SHARDED_DIST_ATOL = 1e-4
+#: the brute plan across shards against the single store's (absolute, a
+#: few float32 ulps at the distances of the headline rows, ~6)
+BRUTE_TIE_ATOL = 1e-6
+#: distances the 1- and 4-shard indexes both return; dp Lloyd vs the
+#: single-device step (relative, and absolute for components near 0)
+SHARDED_RTOL, LLOYD_ATOL = 1e-5, 1e-6
 #: the face phase, over the exhaustive phase's face index (FACE): probed
 #: 32-query waves at quota 10,000 (the facade's quota at sim_limit 100),
 #: ``check`` queries held to a plain selection, natural escalation on a
@@ -242,11 +292,14 @@ SERVING_DIST_ATOL = 1e-4
 #: than the conf's rerank_nb of 1,000: the random embedder puts every face
 #: in one tight cluster (squared distances ~1e-3) that ADC cannot order,
 #: so with more faces than rerank_nb a query face can miss the exact
-#: rerank and another face come back first (40 scenes, 1,056 faces did)
+#: rerank and another face come back first (40 scenes, 1,056 faces did).
+#: The scenes, ``single`` and the ``parity`` wave are kept at 18, 2 and 4
+#: so that the whole run stays under 450 s: a request's host rerank reads
+#: the face columns of every indexed scene (~2 s a request at 36 scenes)
 FACE_PHASE = dict(conf="conf/conf_search_face_local.json", wave=32,
                   waves=3, quota=10_000, limit=100, check=4, subset=8192,
-                  det_scenes=8, embed_waves=(1, 8, 32), scenes=36, single=4,
-                  clients=32, rounds=1, parity=8, seed=0)
+                  det_scenes=8, embed_waves=(1, 8, 32), scenes=18, single=2,
+                  clients=32, rounds=1, parity=4, seed=0)
 #: FaceResNet card vs CPU forward (tests/test_torch_face.py); detector
 #: scores card vs CPU
 EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-4
@@ -1662,6 +1715,382 @@ def phase_scan_check(dev, card, seed):
     return worst, out
 
 
+def _same_ids_but_ties(got, want, atol, what):
+    """Two waves of (results, visited): the same ids in order except swaps
+    between distances within ``atol`` (float rounding ties), and every
+    distance within ``atol``. Returns (worst |dist diff|, tie swaps)."""
+    worst, swaps = 0.0, 0
+    for (rg, _), (rw, _) in zip(got, want):
+        dg = np.array([r.dist for r in rg])
+        dw = np.array([r.dist for r in rw])
+        if len(dg) != len(dw):
+            raise AssertionError(f"{what}: {len(dg)} results vs {len(dw)}")
+        if len(dg):
+            worst = max(worst, float(np.abs(dg - dw).max()))
+        at = {r.id: y for r, y in zip(rw, dw)}
+        for a, b, x in zip(rg, rw, dg):
+            if a.id != b.id:
+                swaps += 1
+                # A tie: the id sits at a distance within atol in the
+                # other list, or fell off its end at the cut-off distance.
+                y = at.get(a.id, dw[-1])
+                if abs(x - y) > 2 * atol:
+                    raise AssertionError(f"{what}: id {a.id} at {x} is not "
+                                         f"a rounding tie of {b.id}")
+    if worst > atol:
+        raise AssertionError(f"{what}: distances differ by {worst}")
+    return worst, swaps
+
+
+def _recall_vs(res, true_rows, k=10):
+    """(recall@1, recall@10, overlap@10) of a wave against exact
+    neighbours ``true_rows`` [nq, >= k] (insertion rows)."""
+    r1 = r10 = ov = 0.0
+    for (rr, _), t in zip(res, true_rows):
+        ids = [r.id for r in rr[:k]]
+        r1 += bool(ids) and ids[0] == t[0]
+        r10 += t[0] in ids
+        ov += len(set(ids) & set(t[:k].tolist())) / k
+    n = len(true_rows)
+    return r1 / n, r10 / n, ov / n
+
+
+def phase_sharded(dev, cfg, state, card):
+    """The mesh layer on the main path's state (its codes, PCA-space rows
+    and trained tables, nothing encoded again): ``ShardedLOPQSearcher`` on
+    one real shard and on SHARDED["shards"] logical shards of the card,
+    the LUT rung held to the plain LUT, the brute plan across shards,
+    ``dp_encode`` and ``dp_lloyd_step`` against their single-device
+    counterparts, and the bfloat16 rerank store. Returns (numbers,
+    ``lut_build`` launches on the sharded path)."""
+    from columbiaimagesearch_tpu_torch.index import query as qmod
+    from columbiaimagesearch_tpu_torch.index.lut import (
+        build_luts,
+        build_luts_plain,
+    )
+    from columbiaimagesearch_tpu_torch.index.query import (
+        brute_query_batch,
+        unpack_query_out,
+    )
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+        ResultDist as Result,
+        _query_geometry,
+    )
+    from columbiaimagesearch_tpu_torch.ops.kmeans import (
+        _lloyd_sums,
+        _pick_chunk,
+        _update,
+    )
+    from columbiaimagesearch_tpu_torch.parallel import (
+        SHARD_AXIS,
+        ShardedLOPQSearcher,
+        dp_encode,
+        dp_lloyd_step,
+        make_mesh,
+        shard_rows,
+    )
+
+    c = SHARDED
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    s = state["searcher"]
+    model = s.model
+    nb = s.get_nb_indexed()
+    d = s._dev
+    V = model.V
+    cells = s._cells[:nb]
+    coarse = np.stack([cells // V, cells % V], axis=1).astype(np.int32)
+    fine = s._fine[:nb]
+    feats = d["feats"][:nb]
+    waves = state["waves"]
+    q, lim, rnb = cfg["quota"], cfg["limit"], cfg["rerank_nb"]
+    kw = dict(quota=q, limit=lim, with_dists=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(c["seed"] + 31)
+    t_phase = time.perf_counter()
+    out = {}
+
+    def build(mesh, what, rerank_dtype="float32"):
+        t0 = time.perf_counter()
+        sh = ShardedLOPQSearcher(model, mesh=mesh, rerank_dtype=rerank_dtype,
+                                 capacity_hint=nb)
+        sh.add_codes((coarse, fine), feats=feats)
+        n = sh.get_nb_indexed()
+        sync()
+        build_s = time.perf_counter() - t0
+        if n != nb or not sh.has_rerank_feats:
+            raise AssertionError(f"sharded: {what} indexed {n} of {nb} rows")
+        log(f"sharded: {what}: {len(mesh)} shard(s) on {list(mesh)}, {nb} "
+            f"rows dealt round-robin (codes + float32 store) in "
+            f"{build_s:.2f}s; cap_per={sh.index._cap_per}")
+        return sh, build_s
+
+    def run_waves(sh, what):
+        res, ms = {}, {}
+        for rr in (None, rnb):
+            res[rr] = []
+            times = []
+            for w in waves:
+                t0 = time.perf_counter()
+                res[rr].append(sh.search_batch(w, rerank_nb=rr, **kw))
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[rr or 0] = times
+            for i, r in enumerate(res[rr]):
+                _check_results(r, lim, f"sharded {what} rerank_nb={rr} "
+                               f"wave {i}")
+        log(f"sharded: {what}: {len(waves)} waves of {waves[0].shape[0]} "
+            f"(natural ladder) ms without rerank "
+            f"{[round(t, 2) for t in ms[0]]}, with rerank_nb={rnb} "
+            f"{[round(t, 2) for t in ms[rnb]]}; wave_log "
+            f"{sh.probe_stats.get('wave_log', [])[-3:]} [{card}]")
+        return res, ms
+
+    # --- one real shard: every visible card.
+    build_luts.launches = 0                   # counts the sharded path only
+    mesh1 = make_mesh(axis=SHARD_AXIS)
+    sh1, b1 = build(mesh1, "one real shard")
+    res1, ms1 = run_waves(sh1, "one real shard")
+    X = waves[0]
+    sh1.index.probe_width = c["probe"]        # pin a LUT rung
+    before = build_luts.launches
+    t0 = time.perf_counter()
+    pinned = sh1.search_batch(X, **kw)
+    sync()
+    pinned_ms = (time.perf_counter() - t0) * 1e3
+    pin_launches = build_luts.launches - before
+    with mock.patch.object(qmod, "build_luts", build_luts_plain):
+        plain = sh1.search_batch(X, **kw)
+    sh1.index.probe_width = None
+    worst, swaps = _same_ids_but_ties(pinned, plain, SHARDED_DIST_ATOL,
+                                      "sharded pinned LUT wave vs plain")
+    if pin_launches <= 0:
+        raise AssertionError("sharded: the pinned wave launched no lut_build")
+    log(f"sharded: one shard, a wave of {X.shape[0]} pinned to rung "
+        f"{c['probe']} (LUT route) {pinned_ms:.2f} ms, {pin_launches} "
+        f"lut_build launch(es); replayed with the plain LUT: ids equal but "
+        f"{swaps} rounding-tie swaps, max_abs_dist_err={worst:.3e} (atol "
+        f"{SHARDED_DIST_ATOL}) [{card}]")
+    Xr = waves[1]
+    sh1.search_batch(Xr, rerank_nb=rnb, **kw)
+    s.search_batch(Xr, rerank_nb=rnb, with_codes=False, **kw)
+    sync()
+    trace_ms = {}
+    if dev.type == "cuda":
+        for name, fn in (
+                ("unsharded", lambda: s.search_batch(
+                    Xr, rerank_nb=rnb, with_codes=False, **kw)),
+                ("one_shard", lambda: sh1.search_batch(
+                    Xr, rerank_nb=rnb, **kw))):
+            wall, busy, n_ops, _top = trace(fn, f"sharded_{name}")
+            trace_ms[name] = dict(wall=wall, busy=busy, ops=n_ops)
+        log(f"profile: a 100-query rerank wave, unsharded "
+            f"LOPQSearcherTorch vs one-shard ShardedLOPQSearcher: device "
+            f"busy {trace_ms['unsharded']['busy']:.2f} / "
+            f"{trace_ms['one_shard']['busy']:.2f} ms, wall (profiled) "
+            f"{trace_ms['unsharded']['wall']:.2f} / "
+            f"{trace_ms['one_shard']['wall']:.2f} ms [{card}]")
+        for line in host_profile(
+                lambda: sh1.search_batch(Xr, rerank_nb=rnb, **kw), sync):
+            log(f"sharded: one-shard rerank wave, host {line}")
+
+    # --- logical shards on the first card, at the same rows.
+    n4 = c["shards"]
+    mesh4 = make_mesh(axis=SHARD_AXIS, devices=[dev] * n4)
+    sh4, b4 = build(mesh4, f"{n4} logical shards")
+    res4, ms4 = run_waves(sh4, f"{n4} logical shards")
+    if dev.type == "cuda":
+        wall, busy, n_ops, _top = trace(
+            lambda: sh4.search_batch(Xr, rerank_nb=rnb, **kw),
+            f"sharded_{n4}")
+        trace_ms[f"{n4}_shards"] = dict(wall=wall, busy=busy, ops=n_ops)
+        log(f"profile: the same wave on {n4} logical shards: device busy "
+            f"{busy:.2f} ms, wall (profiled) {wall:.2f} ms [{card}]")
+    sel = torch.randint(0, nb, (c["self_queries"],), generator=g, device=dev)
+    Xs = feats[sel]
+    self1 = sh1.search_batch(Xs, rerank_nb=rnb, **kw)
+    self4 = sh4.search_batch(Xs, rerank_nb=rnb, **kw)
+    # An index row's nearest row is itself (distance 0). Each shard walks
+    # at least as far as the one-shard walk, so wherever the one-shard
+    # index returns the row first, the logical shards must too.
+    distinct = found4 = 0
+    for i, (row, (r1, _), (r4, _)) in enumerate(
+            zip(sel.tolist(), self1, self4)):
+        found4 += r4[0].id == row
+        if r1[0].id == row and (len(r1) < 2 or r1[1].dist > 0.0):
+            distinct += 1
+            if r4[0].id != row:
+                raise AssertionError(f"sharded: query {i}: top-1 "
+                                     f"{r4[0].id} on {n4} shards, "
+                                     f"{row} on one")
+    if distinct < c["self_queries"] // 2:
+        raise AssertionError(f"sharded: only {distinct} queries came back "
+                             f"first as themselves on one shard")
+    common = 0
+    for a, b in ([(self1, self4)] + list(zip(res1[None], res4[None]))
+                 + list(zip(res1[rnb], res4[rnb]))):
+        for (ra, _), (rb, _) in zip(a, b):
+            da = {r.id: r.dist for r in ra}
+            for r in rb:
+                if r.id in da:
+                    common += 1
+                    if not np.isclose(r.dist, da[r.id], rtol=SHARDED_RTOL,
+                                      atol=0.0):
+                        raise AssertionError(
+                            f"sharded: id {r.id}: {r.dist} on {n4} shards, "
+                            f"{da[r.id]} on one")
+    log(f"sharded: {n4} logical shards vs one, {c['self_queries']} index "
+        f"rows as queries (rerank_nb={rnb}): first as themselves on one "
+        f"shard {distinct}, on {n4} shards {found4} (the same top-1 "
+        f"wherever one shard has it); {common} ids returned by both at "
+        f"equal distances (rtol {SHARDED_RTOL})")
+    # Exact neighbours of a wave of fresh queries: the single store's
+    # brute plan.
+    _K, _Q, _Ks, R, K_emit = _query_geometry(q, lim, nb, rnb)
+    packed = brute_query_batch(X, d["feats"], d["feats_sq"], nb, d["n_occ"],
+                               K_pre=R, K_out=K_emit).cpu().numpy()
+    true_rows, true_d, _t, true_cells, _ok = unpack_query_out(packed, K_emit)
+    quality = {}
+    for name, res in (("one", res1), (f"{n4}", res4)):
+        for rr in (None, rnb):
+            quality[f"{name} rerank_nb={rr}"] = _recall_vs(res[rr][0],
+                                                           true_rows)
+    log(f"sharded: recall@1, recall@10, overlap@10 against the exact "
+        f"neighbours of {X.shape[0]} queries: {quality}")
+    with mock.patch.object(sh4.index, "_use_brute",
+                           lambda *a, **k: True):
+        t0 = time.perf_counter()
+        brute4 = sh4.search_batch(X, rerank_nb=rnb, **kw)
+        sync()
+        brute_ms = (time.perf_counter() - t0) * 1e3
+    # Equal ids, but for rows at equal float32 distances (within
+    # BRUTE_TIE_ATOL, a few ulps): the single store orders them by
+    # preselect rank, the merge by shard.
+    single = [([Result(int(r), None, float(x))
+                for r, x in zip(true_rows[i][:lim], true_d[i][:lim])],
+               int(true_cells[i])) for i in range(len(brute4))]
+    _, brute_ties = _same_ids_but_ties(brute4, single, BRUTE_TIE_ATOL,
+                                       "sharded brute plan vs single store")
+    if any(a[1] != b[1] for a, b in zip(brute4, single)):
+        raise AssertionError("sharded: the brute plan's occupied cells "
+                             "differ from the single store's")
+    log(f"sharded: the brute plan across {n4} logical shards {brute_ms:.2f} "
+        f"ms a wave of {X.shape[0]}; ids and occupied cells "
+        f"({int(true_cells[0])}) equal to the single store's "
+        f"brute_query_batch but {brute_ties} swaps of rows at equal float32 "
+        f"distances [{card}]")
+    launches = build_luts.launches
+    out.update(one=dict(build_s=b1, wave_ms=ms1, pinned_ms=pinned_ms,
+                        pinned_launches=pin_launches, pinned_swaps=swaps,
+                        pinned_max_abs=worst),
+               logical=dict(shards=n4, build_s=b4, wave_ms=ms4,
+                            brute_ms=brute_ms, brute_ties=brute_ties,
+                            self_first_one=distinct,
+                            self_first_logical=found4, common_ids=common),
+               quality=quality, trace=trace_ms, launches=launches)
+    del sh1, sh4, res1, res4, self1, self4, brute4
+    torch.cuda.empty_cache()
+
+    # --- data parallel.
+    X1 = feats[:c["dp_rows"]]
+    t0 = time.perf_counter()
+    want_c, want_f = model.predict_batch(X1)
+    sync()
+    dp = dict(predict_batch_s=time.perf_counter() - t0)
+    for name, mesh in (("one", mesh1), (f"{n4}", mesh4)):
+        t0 = time.perf_counter()
+        got_c, got_f = dp_encode(mesh, model.Cs, model.Rs, model.mus,
+                                 model.subs, X1, chunk=4096)
+        dp[f"encode_{name}_s"] = time.perf_counter() - t0
+        if not (np.array_equal(got_c, want_c.astype(np.int32))
+                and np.array_equal(got_f, want_f.astype(np.int32))):
+            raise AssertionError(f"sharded: dp_encode on {name} shard(s) "
+                                 f"differs from predict_batch")
+    Dh = int(model.Cs.shape[2])
+    XL = feats[:c["lloyd_rows"], :Dh].contiguous()
+    C0 = model.Cs[0]
+    t0 = time.perf_counter()
+    sums, counts, total = _lloyd_sums([XL], C0, _pick_chunk(XL.shape[0], V))
+    C1 = _update(C0, sums, counts)
+    sync()
+    dp["lloyd_single_s"] = time.perf_counter() - t0
+    for name, mesh in (("one", mesh1), (f"{n4}", mesh4)):
+        Xsh, n = shard_rows(mesh, XL)
+        wsh, _ = shard_rows(mesh, torch.ones(n, device=dev))
+        t0 = time.perf_counter()
+        Cd, inertia = dp_lloyd_step(Xsh, wsh, C0, V)
+        sync()
+        dp[f"lloyd_{name}_s"] = time.perf_counter() - t0
+        err = float(((Cd - C1).abs() - SHARDED_RTOL * C1.abs()).max())
+        if err > LLOYD_ATOL or not np.isclose(float(inertia), float(total),
+                                              rtol=SHARDED_RTOL, atol=0.0):
+            raise AssertionError(f"sharded: dp_lloyd_step on {name} "
+                                 f"shard(s) vs single device: excess "
+                                 f"{err}, inertia {float(inertia)} vs "
+                                 f"{float(total)}")
+    del XL, sums, counts
+    log(f"sharded: dp_encode of {X1.shape[0]} rows on one shard and on "
+        f"{n4} logical shards equals predict_batch; dp_lloyd_step at V={V} "
+        f"on {c['lloyd_rows']} rows (first half) equals the single-device "
+        f"Lloyd step (rtol {SHARDED_RTOL}, atol {LLOYD_ATOL}); seconds "
+        f"{ {k: round(v, 3) for k, v in dp.items()} } [{card}]")
+    out["dp"] = dp
+
+    # --- the bfloat16 rerank store.
+    plan = LOPQSearcherTorch._plan_rerank_dtype("auto", s._cap,
+                                                int(feats.shape[1]),
+                                                device=dev)
+    if plan != torch.float32:
+        raise AssertionError(f"sharded: the auto plan picked {plan} for "
+                             f"{s._cap} rows of capacity")
+    t0 = time.perf_counter()
+    sb = LOPQSearcherTorch(model, rerank_dtype="bfloat16", capacity_hint=nb)
+    sb.add_codes((coarse, fine), feats=feats)
+    sb.get_nb_indexed()
+    sync()
+    bf_build_s = time.perf_counter() - t0
+    store = sb._dev["feats"]
+    if store.dtype != torch.bfloat16:
+        raise AssertionError(f"sharded: the bfloat16 store is {store.dtype}")
+    gb_bf = nb * feats.shape[1] * 2 / 1e9
+    gb_f32 = nb * feats.shape[1] * 4 / 1e9
+    bf_ms, worst_rel, ov = [], 0.0, 0.0
+    for w in waves:
+        t0 = time.perf_counter()
+        rb = sb.search_batch(w, rerank_nb=rnb, with_codes=False, **kw)
+        sync()
+        bf_ms.append((time.perf_counter() - t0) * 1e3)
+        rf = s.search_batch(w, rerank_nb=rnb, with_codes=False, **kw)
+        for i, ((rrb, _), (rrf, _)) in enumerate(zip(rb, rf)):
+            rows = torch.as_tensor([r.id for r in rrb], device=dev)
+            exact = torch.linalg.vector_norm(
+                feats[rows].to(torch.bfloat16).float() - w[i], dim=1)
+            dist = torch.as_tensor([r.dist for r in rrb], device=dev)
+            worst_rel = max(worst_rel, float(
+                ((dist - exact).abs() / exact.clamp_min(1e-30)).max()))
+            ov += len({r.id for r in rrb[:10]}
+                      & {r.id for r in rrf[:10]}) / 10
+    ov /= len(waves) * waves[0].shape[0]
+    if worst_rel > SHARDED_RTOL:
+        raise AssertionError(f"sharded: bfloat16 store distances differ "
+                             f"from float32 recomputes by {worst_rel}")
+    log(f"sharded: bfloat16 store {tuple(store.shape)} "
+        f"({gb_bf:.2f} GB for {nb} rows, float32 {gb_f32:.2f} GB), built in "
+        f"{bf_build_s:.2f}s; auto plan at capacity {s._cap} on this card: "
+        f"float32; rerank waves ms {[round(t, 2) for t in bf_ms]} "
+        f"(brute_waves {sb.probe_stats.get('brute_waves', 0)}); every "
+        f"exact distance equals a float32 recompute from the rounded rows "
+        f"(max rel err {worst_rel:.2e}); overlap@10 with the float32 store "
+        f"{ov:.4f} [{card}]")
+    out["bf16"] = dict(gb=gb_bf, gb_f32=gb_f32, build_s=bf_build_s,
+                       wave_ms=bf_ms, max_rel=worst_rel, overlap10=ov)
+    del sb, store
+    torch.cuda.empty_cache()
+    log(f"sharded: checks passed; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return out, launches
+
+
 def phase_pca(dev, cfg, state, card, trained):
     """The release model's PCA front end: the trained LOPQModelPCA
     (``pca_P [4096, 256]`` over the main path's tables). Raw rows go
@@ -2546,8 +2975,12 @@ def phase_serving(dev, card, trained, cfg=None):
         log(f"serving: checks passed: {len(single) + len(conc) + 2} HTTP "
             f"answers without errors, each with its query image first; "
             f"phase {time.perf_counter() - t_phase:.1f}s")
+        sharded_http = phase_sharded_http(
+            dev, card, facade, nb, conf["KVI_db_path"], work, forms, sha1s,
+            cfg["overrides"])
         return dict(launches=launches, first_ms=first_ms, single=single,
                     conc=conc, sizes=sizes, refresh_s=refresh_s,
+                    sharded_http=sharded_http,
                     pipeline={k: pipe[k] for k in (
                         "seconds", "img_s", "per_update", "splits",
                         "card_err", "cpu_err")})
@@ -2560,6 +2993,132 @@ def phase_serving(dev, card, trained, cfg=None):
             os.environ.pop(WEIGHTS_ENV, None)
         else:
             os.environ[WEIGHTS_ENV] = old_env
+
+
+def phase_sharded_http(dev, card, facade, nb, db, work, forms, sha1s,
+                       overrides):
+    """conf/conf_search_sharded.json served over HTTP (SHARDED): the
+    release serving facade's ``nb`` bulk rows (its codes and PCA-space
+    features, not encoded again) and the pipeline's store ``db``. Only the
+    db and storer paths are rewritten, plus the serving phase's rerank
+    depth (``overrides``; see SERVING). The storer holds the trained
+    release ``LOPQModelPCA`` under the conf's model string (a ``lopq``
+    model of this V on the raw 4096-d fc7 would need 2 x 4096 rotations of
+    2048^2 floats, 137 GB). The conf sets no ``store_rerank_feats``, so the
+    ingested rows' codes go in without features, which drops the device
+    store (JAX semantics) and the rerank runs on the host through sqlite.
+    Returns (numbers, ``lut_build`` launches)."""
+    import threading
+
+    from columbiaimagesearch_tpu_torch.api.app import make_server
+    from columbiaimagesearch_tpu_torch.common.factory import (
+        build_searcher,
+        build_storer,
+    )
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        build_extr_str,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.parallel.sharded import (
+        ShardedLOPQSearcher,
+    )
+
+    c = SHARDED
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, c["conf"])) as f:
+        conf = json.load(f)
+    conf.update(overrides)
+    conf["KVI_db_path"] = db
+    conf["ST_base_path"] = os.path.join(work, "sharded_storer")
+    V, M = int(conf["SEARCHLOPQ_lopq_V"]), int(conf["SEARCHLOPQ_lopq_M"])
+    S = int(conf["SEARCHLOPQ_lopq_subq"])
+    key = (f"{build_extr_str('sentibank', 'full', 'image')}_lopq-subq{S}"
+           f"-V{V}-M{M}")
+    build_storer(conf).save(key, facade.model)
+    t0 = time.perf_counter()
+    fac = build_searcher(conf)            # load_codes of the store at init
+    sh = fac.searcher
+    if (fac.build_model_str() != key
+            or not isinstance(sh, ShardedLOPQSearcher)
+            or len(sh.index.devices) != torch.cuda.device_count()
+            or sh.index.devices[0] != dev):
+        raise AssertionError("sharded http: the facade is not sharded over "
+                             "every visible card")
+    s = facade.searcher
+    cells = s._cells[:nb]
+    sh.add_codes((np.stack([cells // V, cells % V], axis=1).astype(np.int32),
+                  s._fine[:nb]), feats=s._dev["feats"][:nb])
+    total = fac.get_nb_indexed()
+    sync()
+    build_s = time.perf_counter() - t0
+    log(f"sharded http: {c['conf']} (rerank_nb "
+        f"{conf['SEARCHLOPQ_rerank_nb']}) -> build_searcher over "
+        f"{len(sh.index.devices)} card(s): {len(fac.indexed_updates)} "
+        f"pipeline updates through load_codes, {nb} bulk rows through "
+        f"add_codes(feats=...); nb_indexed={total}, has_rerank_feats="
+        f"{sh.has_rerank_feats} in {build_s:.2f}s [{card}]")
+    if total <= nb or sh.has_rerank_feats:
+        raise AssertionError("sharded http: the index does not hold the "
+                             "pipeline's rows, or kept a device store")
+    server = make_server(fac, port=0, host="127.0.0.1")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    before = build_luts.launches
+    try:
+        single, timing = [], []
+        for i in range(c["single"]):
+            j = (i + 1) % len(forms)
+            ms, reply = _post(port, "byB64", forms[j])
+            _check_reply(reply, sha1s[j], f"sharded 1-client request {i}")
+            single.append(ms)
+        n_c = c["clients"]
+        res, srv, errs = [None] * n_c, [None] * n_c, []
+        gate = threading.Event()
+
+        def client(i):
+            gate.wait()
+            j = i % len(forms)
+            try:
+                ms, reply = _post(port, "byB64", forms[j])
+                _check_reply(reply, sha1s[j], f"sharded client {i}")
+                res[i], srv[i] = ms, reply["Timing"] * 1e3
+            except Exception as inst:  # noqa: BLE001 — reported
+                errs.append(inst)
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(n_c)]
+        for t in ts:
+            t.start()
+        gate.set()
+        for t in ts:
+            t.join(timeout=300)
+        if errs or any(t.is_alive() for t in ts):
+            raise AssertionError(f"sharded http: {n_c}-client round: "
+                                 f"{errs[:3]}")
+        timing = srv
+        sync()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches = build_luts.launches - before
+    out = dict(build_s=build_s, single_p50=float(np.percentile(single, 50)),
+               single_p99=float(np.percentile(single, 99)),
+               conc_p50=float(np.percentile(res, 50)),
+               conc_p99=float(np.percentile(res, 99)),
+               timing_p50=float(np.percentile(timing, 50)),
+               launches=launches, waves=sh.probe_stats["waves"],
+               wave_log=sh.probe_stats.get("wave_log", [])[-3:])
+    log(f"sharded http: byB64 1 client p50 {out['single_p50']:.2f} ms p99 "
+        f"{out['single_p99']:.2f} ms ({len(single)} requests); {n_c} "
+        f"clients p50 {out['conc_p50']:.2f} ms p99 {out['conc_p99']:.2f} ms,"
+        f" Timing p50 {out['timing_p50']:.2f} ms; every query image first "
+        f"(host rerank at depth {conf['SEARCHLOPQ_rerank_nb']}); lut_build "
+        f"launches {launches}; wave_log {out['wave_log']}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s [{card}]")
+    del fac, sh
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def phase_codestore(dev, card, trained, cfg=None):
@@ -3221,6 +3780,7 @@ def main():
     phase_memory(dev, cfg, state, card)
     phase_profile(dev, cfg, state, card)
     phase_pca(dev, cfg, state, card, trained)
+    sharded, sharded_launches = phase_sharded(dev, cfg, state, card)
     del state
     torch.cuda.empty_cache()
     phase_fc7(dev, card)
@@ -3236,7 +3796,11 @@ def main():
     phase_face_models(dev, card)
     face_serving = phase_face_serving(dev, card, index)
     del index
+    http, http_launches = serving["sharded_http"]
+    sharded["http"] = http
+    sharded_launches += http_launches
     log(f"launches: lut_build {launches} on the probed path + "
+        f"{sharded_launches} on the sharded path + "
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
         f"the face probed path + {face_serving['launches']} on the face "
@@ -3253,12 +3817,15 @@ def main():
         serving["pipeline"], refresh_s=serving["refresh_s"],
         codestore=codestore, card=name.strip(),
         power_limit=power.strip())}))
+    log(json.dumps({"sharded": dict(sharded, card=name.strip(),
+                                    power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
-        "launches": launches + serving["launches"]["lut"]
-        + ex["lut_launches"] + face_launches + face_serving["launches"],
+        "launches": launches + sharded_launches
+        + serving["launches"]["lut"] + ex["lut_launches"] + face_launches
+        + face_serving["launches"],
         "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

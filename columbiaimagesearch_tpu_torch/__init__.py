@@ -12,7 +12,9 @@ embeddings -> the probed query), trains LOPQ models on the card
 (k-means, PCA, local rotations), and ingests: image directories or bus
 messages -> updates -> features extracted on the card -> the KV store
 (``pipeline/``), with the codes persisted in the native code store.
-It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
+It serves on several cards too: the row-sharded index over a device mesh
+(``parallel/``), one process launching every shard's query on its own
+card. It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
 ``jax`` or ``columbiaimagesearch_tpu``: the JAX package is the reference the
 port is tested against, not a dependency.
 
@@ -32,7 +34,12 @@ Layout (JAX counterpart in brackets):
   kernel's wrapper and its plain PyTorch version.
 - ``index/query.py`` [index/tpu_query.py]: ``lopq_query`` and friends.
 - ``index/probe.py`` [index/tpu_query.py]: the probe-ladder policy.
-- ``index/searcher.py`` [index/searcher.py]: ``LOPQSearcherTorch``.
+- ``index/multisequence.py`` [index/multisequence.py]: the cell walk.
+- ``index/searcher.py`` [index/searcher.py]: ``LOPQSearcherTorch``, and
+  the host reference ``LOPQSearcherBase``/``LOPQSearcher``.
+- ``parallel/mesh.py``, ``parallel/sharded.py`` [the same names]: device
+  meshes, data-parallel encode and Lloyd, ``ShardedLOPQIndex`` and
+  ``ShardedLOPQSearcher``.
 - ``index/exhaustive_adc.py`` [index/pallas_adc.py]: the scan kernel's
   wrapper and plain version, ``ExhaustiveADC``, ``ExhaustiveADCSearcher``.
 - ``kernels/build.py`` [native/build.py]: nvcc build + ctypes loading.
@@ -57,7 +64,10 @@ from columbiaimagesearch_tpu_torch.index.model import (
     LOPQModel,
     LOPQModelPCA,
 )
-from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+from columbiaimagesearch_tpu_torch.index.searcher import (
+    LOPQSearcher,
+    LOPQSearcherTorch,
+)
 
 __all__ = ["ExhaustiveADC", "ExhaustiveADCSearcher", "LOPQCode", "LOPQModel",
-           "LOPQModelPCA", "LOPQSearcherTorch"]
+           "LOPQModelPCA", "LOPQSearcher", "LOPQSearcherTorch"]

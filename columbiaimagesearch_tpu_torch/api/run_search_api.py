@@ -11,7 +11,10 @@ Usage: python -m columbiaimagesearch_tpu_torch.api.run_search_api \\
 
 ``--device`` (default ``cuda``) is where the model, the index and the
 featurizer live. Without a card the default raises at once, before the
-boot retries; ``--device cpu`` serves from the CPU.
+boot retries; ``--device cpu`` serves from the CPU. A conf with
+``SEARCHLOPQ_sharded`` (conf/conf_search_sharded.json) row-shards the
+index over every visible card, or over one CPU shard with ``--device
+cpu``.
 """
 
 import argparse

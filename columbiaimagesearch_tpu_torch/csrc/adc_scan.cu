@@ -75,6 +75,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <mutex>
 
 #include <cuda_runtime.h>
 
@@ -333,28 +334,40 @@ adc_scan_kernel(const Params p) {
   }
 }
 
+// Devices the per-device launch caches hold (device ordinals below it).
+constexpr int kMaxDevices = 64;
+
 template <int QT, int MT>
 cudaError_t launch(const Params& p, size_t smem, int num_sms,
                    cudaStream_t stream) {
   // Set once per (device, shared-memory size) of a kernel: the attribute
-  // and occupancy queries cost host time on every call otherwise.
-  static size_t set_smem = 0;
-  static int set_dev = -1;
-  static int per_sm = 0;
+  // and occupancy queries cost host time on every call otherwise. One
+  // entry per device, so launches that alternate between cards do not set
+  // the attribute on every call; the mutex serialises the first set where
+  // several host threads launch at once.
+  static std::mutex mu;
+  static size_t set_smem[kMaxDevices] = {};
+  static int per_sm_of[kMaxDevices] = {};
   int dev = 0;
   cudaError_t de = cudaGetDevice(&dev);
   if (de != cudaSuccess) return de;
-  if (set_smem != smem || set_dev != dev) {
-    cudaError_t e = cudaFuncSetAttribute(
-        adc_scan_kernel<QT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, adc_scan_kernel<QT, MT>, kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidValue;
-    set_smem = smem;
-    set_dev = dev;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (set_smem[dev] != smem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          adc_scan_kernel<QT, MT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm_of[dev], adc_scan_kernel<QT, MT>, kThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (per_sm_of[dev] < 1) return cudaErrorInvalidValue;
+      set_smem[dev] = smem;
+    }
+    per_sm = per_sm_of[dev];
   }
   const long long grid =
       std::min<long long>(static_cast<long long>(per_sm) * num_sms, p.n_items);
@@ -376,7 +389,8 @@ cudaError_t launch_m(const Params& p, size_t smem, int num_sms,
 // [n_items + 1] i32 (first block of each work item, ascending, then NB;
 // each item one cell's run of at most `cap` blocks), lut0t/lut1t
 // [V, T, F, Sp, QT] f32 (T = ceil(NQ / QT), Sp >= S, Sp % 4 == 0) -> out
-// [NQ, NB*128] f32. All contiguous, all on the current device. M even,
+// [NQ, NB*128] f32. All contiguous, all on the current device (the
+// caller makes the inputs' device current). M even,
 // 1 <= S <= 256, V <= 46340 (cell ids are int32), QT in {1, 2, 4, 8};
 // `smem` the dynamic shared memory the wrapper sized (index/exhaustive_adc.py
 // _scan_smem_bytes).

@@ -76,6 +76,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <mutex>
 
 #include <cuda_runtime.h>
 
@@ -99,6 +100,7 @@ constexpr int kMeta = 4 + kMaxKx;  // a stage's header: cluster, p0, p1, -,
 constexpr int kHead = kBarBytes + ((kStages * kMeta * 4 + 15) & ~15);
 constexpr int kSortThreads = 1024;
 constexpr int kSortSmemMax = 96 * 1024;  // bins in shared memory up to this
+constexpr int kMaxDevices = 64;  // devices the launch caches hold
 constexpr int kMinBlocks = LUT_MIN_BLOCKS;  // blocks an SM to fit
 constexpr int kTargetSmem = 227 * 1024 / kMinBlocks - 1024;
 constexpr int kMaxSmem = 227 * 1024;
@@ -625,24 +627,31 @@ cudaError_t launch_bands(const Args& base, int NS, int num_sms,
   }
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   // The attribute and occupancy queries cost host time: once per (device,
-  // shared-memory size).
-  static size_t set_smem = 0;
-  static int set_dev = -1;
-  static int per_sm = 0;
+  // shared-memory size), one entry per device, so launches that alternate
+  // between cards do not set the attribute on every call; the mutex
+  // serialises the first set where several host threads launch at once.
+  static std::mutex mu;
+  static size_t set_smem[kMaxDevices] = {};
+  static int per_sm_of[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (set_smem != smem || set_dev != dev) {
-    e = cudaFuncSetAttribute(lut_band_kernel<DS4>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lut_band_kernel<DS4>, kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidValue;
-    set_smem = smem;
-    set_dev = dev;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (set_smem[dev] != smem) {
+      e = cudaFuncSetAttribute(lut_band_kernel<DS4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm_of[dev], lut_band_kernel<DS4>, kThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (per_sm_of[dev] < 1) return cudaErrorInvalidValue;
+      set_smem[dev] = smem;
+    }
+    per_sm = per_sm_of[dev];
   }
   // As many parts of each split's groups as the resident blocks allow, and
   // no more than a split can have groups.
@@ -672,7 +681,7 @@ extern "C" long long lut_scratch_ints(int NQ, int B, int V) {
 // slot a group of its own; 2 (kAllClusters) is for isel[q, s, b] = b with
 // B = V, which it does not read (isel may be null). iscratch may be null
 // unless grouping is 1. All contiguous, 16-byte aligned, on the current
-// device. Dh == F * Dsub, and Dh, Dsub multiples of 4. num_sms: the
+// device (the caller makes the inputs' device current). Dh == F * Dsub, and Dh, Dsub multiples of 4. num_sms: the
 // device's SM count (grid size).
 extern "C" int lut_build(const void* x2, const void* isel, const void* Cs,
                          const void* Rs, const void* mus, const void* subs,
@@ -703,16 +712,24 @@ extern "C" int lut_build(const void* x2, const void* isel, const void* Cs,
     const size_t bin_bytes = 2 * (static_cast<size_t>(V) + 1) * sizeof(int);
     const bool in_smem = bin_bytes <= static_cast<size_t>(kSortSmemMax);
     const size_t sort_smem = in_smem ? bin_bytes : 0;
-    static int set_sort_dev = -1;  // the attribute, once per device
+    // The attribute, once per device (see launch_bands).
+    static std::mutex sort_mu;
+    static bool sort_set[kMaxDevices] = {};
     int dev = 0;
     e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev != set_sort_dev) {
-      e = cudaFuncSetAttribute(lut_sort_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSortSmemMax);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      set_sort_dev = dev;
+    if (dev < 0 || dev >= kMaxDevices) {
+      return static_cast<int>(cudaErrorInvalidDevice);
+    }
+    {
+      std::lock_guard<std::mutex> lock(sort_mu);
+      if (!sort_set[dev]) {
+        e = cudaFuncSetAttribute(lut_sort_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSortSmemMax);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        sort_set[dev] = true;
+      }
     }
     lut_sort_kernel<<<1, kSortThreads, sort_smem, st>>>(
         pi, static_cast<int>(2 * NS), B, V, in_smem ? nullptr : ngs + 2,

@@ -26,6 +26,10 @@ torch.backends.cudnn.allow_tf32 = False
 #: meaningful under a shared machine, so waves on the CPU are sized
 #: against this fixed budget instead.
 CPU_WORKSET_BYTES = 2e9
+#: The memory size a CPU "device" reports to the rerank-store dtype plan
+#: (index/searcher.py ``rerank_f32_budget``), for the same reason: fixed,
+#: so tests can set it.
+CPU_DEVICE_BYTES = 16e9
 
 
 def default_device():
@@ -72,6 +76,15 @@ def sm_count(device):
     """The SM count of a CUDA ``device`` (kernel grid sizes), read once."""
     index = torch.device(device).index
     return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def device_bytes(device):
+    """The memory size of ``device``: a card's total memory
+    (``torch.cuda.mem_get_info``), else :data:`CPU_DEVICE_BYTES`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_DEVICE_BYTES
+    return float(torch.cuda.mem_get_info(device)[1])
 
 
 def free_bytes(device):

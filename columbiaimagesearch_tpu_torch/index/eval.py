@@ -4,8 +4,6 @@ distortion (port of columbiaimagesearch_tpu/index/eval.py:1-127).
 Brute-force neighbours are chunked fp32 matmuls on the device; coarse
 codes are the nearest centroid of each half on the model's tables. Results
 are numpy, as in the JAX package.
-``get_proportion_of_reconstructions_with_same_codes`` needs
-``LOPQModel.reconstruct_batch``, which the port does not have yet.
 """
 
 import time
@@ -89,11 +87,13 @@ def get_cell_histogram(data, model):
 
 
 def get_proportion_of_reconstructions_with_same_codes(data, model):
-    """Needs ``LOPQModel.reconstruct_batch`` (eval.py:85-94)."""
-    raise NotImplementedError(
-        "get_proportion_of_reconstructions_with_same_codes needs "
-        "LOPQModel.reconstruct_batch, which is not ported yet (ROADMAP.md, "
-        "Queue 1 #8)")
+    """Fraction of points whose reconstruction re-encodes to the same code
+    (eval.py:85-94), batched."""
+    coarse, fine = model.predict_batch(data)
+    recon = model.reconstruct_batch(coarse, fine)
+    coarse2, fine2 = model.predict_batch(recon)
+    same = np.all(coarse == coarse2, axis=1) & np.all(fine == fine2, axis=1)
+    return float(np.mean(same))
 
 
 def get_recall(searcher, queries, nns, thresholds=(1, 10, 100, 1000),

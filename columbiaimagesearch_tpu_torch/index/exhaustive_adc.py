@@ -295,13 +295,16 @@ def adc_scan_tiled(codes_padded, block_cell, block_count, lut0t, lut1t, *,
         raise ValueError("items must end with NB")
     out = torch.empty((NQ, NB * BLK), dtype=torch.float32, device=dev)
     lib = _library()
-    sms = sm_count(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.adc_scan(codes_padded.data_ptr(), block_cell.data_ptr(),
-                       block_count.data_ptr(), items.data_ptr(),
-                       lut0t.data_ptr(), lut1t.data_ptr(), out.data_ptr(),
-                       NB, items.shape[0] - 1, M, V, S, Sp, NQ, QT,
-                       ITEM_BLOCKS, smem, sms, stream)
+    # Launched under the inputs' device: the library takes the calling
+    # thread's current device.
+    with torch.cuda.device(dev):
+        sms = sm_count(dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adc_scan(codes_padded.data_ptr(), block_cell.data_ptr(),
+                           block_count.data_ptr(), items.data_ptr(),
+                           lut0t.data_ptr(), lut1t.data_ptr(),
+                           out.data_ptr(), NB, items.shape[0] - 1, M, V, S,
+                           Sp, NQ, QT, ITEM_BLOCKS, smem, sms, stream)
     if err != 0:
         raise RuntimeError(f"adc_scan launch failed: CUDA error {err}")
     adc_scan_all.launches += 1        # the one count of scan launches

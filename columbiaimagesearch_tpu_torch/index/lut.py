@@ -10,7 +10,8 @@ and request waves both go through it.
 
 :func:`build_luts` launches ``csrc/lut_build.cu`` for CUDA tensors and
 uses :func:`build_luts_plain` for CPU tensors; on a CUDA tensor it
-launches or raises, never falls back. On the card one call groups each
+launches or raises, never falls back. On the card the kernel launches
+under the inputs' device and its current stream. One call groups each
 split's slots by probed cluster (a counting sort; a one-query call and
 :func:`build_luts_all_clusters` need none), then builds the tables band by
 band: each probed rotation matrix is read from device memory once, by TMA
@@ -141,14 +142,19 @@ def _launch(x2, isel, Cs, Rs, mus, subs, grouping):
     iscratch = (torch.empty(lib.lut_scratch_ints(NQ, B, V),
                             dtype=torch.int32, device=dev)
                 if grouping == _SORTED else None)
-    sms = sm_count(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lut_build(x2.data_ptr(),
-                        None if isel is None else isel.data_ptr(),
-                        Cs.data_ptr(), Rs.data_ptr(), mus.data_ptr(),
-                        subs.data_ptr(), out.data_ptr(),
-                        None if iscratch is None else iscratch.data_ptr(),
-                        grouping, NQ, B, V, Dh, F, S, Dsub, sms, stream)
+    # The library launches on the calling thread's current device: make
+    # it the inputs' (a shard on cuda:1 must not launch on cuda:0 with a
+    # stream of cuda:1).
+    with torch.cuda.device(dev):
+        sms = sm_count(dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lut_build(x2.data_ptr(),
+                            None if isel is None else isel.data_ptr(),
+                            Cs.data_ptr(), Rs.data_ptr(), mus.data_ptr(),
+                            subs.data_ptr(), out.data_ptr(),
+                            None if iscratch is None
+                            else iscratch.data_ptr(),
+                            grouping, NQ, B, V, Dh, F, S, Dsub, sms, stream)
     if err != 0:
         raise RuntimeError(f"lut_build launch failed: CUDA error {err} (1: "
                            f"a shape the kernel does not take, e.g. bands of "

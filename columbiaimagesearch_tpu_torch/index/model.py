@@ -1,5 +1,6 @@
 """LOPQ model parameters as tensors on an explicit device
-(port of columbiaimagesearch_tpu/index/model.py:145-253, 372-387, 403-487).
+(port of columbiaimagesearch_tpu/index/model.py:145-253, 372-387, 403-487,
+565-716).
 
 The port's model is a parameter container: ``Cs [2, V, Dh]``,
 ``Rs [2, V, Dh, Dh]`` (applied as ``R @ r``), ``mus [2, V, Dh]`` and
@@ -26,8 +27,11 @@ from tables, so ``LOPQModel.fit`` and ``LOPQModelPCA.fit`` are
 classmethods that take the JAX ``fit`` arguments (plus the constructor's
 ``V``/``M``/``subquantizer_clusters``, ``parameters=`` for reuse,
 ``device`` and ``generator``) and return a trained model; the JAX methods
-train the instance in place. ``.mat``/proto I/O is not ported yet
-(ROADMAP.md).
+train the instance in place. The single-vector API of the JAX model
+(``predict``, ``predict_coarse``/``predict_fine``, ``project``,
+``reconstruct``, ``get_subquantizer_distances``, the cell-id helpers;
+model.py:565-716) takes numpy and returns numpy, computed on the model's
+device. ``.mat``/proto I/O is not ported yet (ROADMAP.md).
 """
 
 from collections import namedtuple
@@ -240,6 +244,121 @@ class LOPQModel:
         return (coarse.cpu().numpy().astype(code_dtype_for(self.V)),
                 fine.cpu().numpy().astype(
                     code_dtype_for(self.subquantizer_clusters)))
+
+    # ------------------------------------------------- single-vector API
+    # (model.py:565-716): numpy in, numpy out, computed on the model's
+    # device; codes carry the dtypes sized to the codebooks, as JAX's.
+
+    def _rows(self, X):
+        return torch.as_tensor(np.asarray(X, dtype=np.float32)).to(
+            self.device)
+
+    def predict(self, x):
+        """Code one vector: ``LOPQCode(coarse tuple, fine tuple)``; a
+        ``LOPQModelPCA`` projects it first (its ``predict_batch``)."""
+        coarse, fine = self.predict_batch(np.asarray(x, np.float32)[None, :])
+        return LOPQCode(tuple(coarse[0]), tuple(fine[0]))
+
+    def predict_coarse(self, x):
+        """The coarse codes of one vector (a pair)."""
+        X = self._rows(np.asarray(x, np.float32)[None, :])
+        Dh = int(self.Cs.shape[2])
+        out = []
+        for s in range(2):
+            xs = X[:, s * Dh:(s + 1) * Dh]
+            c2 = (self.Cs[s] * self.Cs[s]).sum(dim=1)
+            d2 = c2[None, :] - 2.0 * (xs @ self.Cs[s].T)
+            out.append(int(torch.argmin(d2, dim=1)[0]))
+        return tuple(np.asarray(out).astype(code_dtype_for(self.V)))
+
+    def predict_fine(self, x, coarse_codes=None):
+        """The fine codes of one vector under ``coarse_codes`` (its own
+        when None)."""
+        x = np.asarray(x, dtype=np.float32)
+        if coarse_codes is None:
+            coarse_codes = self.predict_coarse(x)
+        px = torch.as_tensor(self.project_batch(
+            x[None, :], np.asarray(coarse_codes)[None, :])).to(self.device)
+        F, Dsub = self.num_fine_splits, int(self.subs.shape[3])
+        pr = px.reshape(1, 2, F, Dsub)
+        fine = []
+        for s in range(2):
+            s2 = (self.subs[s] * self.subs[s]).sum(dim=2)        # [F, S]
+            prod = torch.einsum("nfd,fsd->nfs", pr[:, s], self.subs[s])
+            fine.extend(torch.argmin(s2[None] - 2.0 * prod,
+                                     dim=2)[0].tolist())
+        return tuple(np.asarray(fine).astype(
+            code_dtype_for(self.subquantizer_clusters)))
+
+    def project(self, x, coarse_codes, coarse_split=None):
+        """One vector in its local residual frame: ``R_c (x_s - C_c -
+        mu_c)`` for one split, or both halves concatenated."""
+        x = np.asarray(x, dtype=np.float32)
+        if coarse_split is not None:
+            Dh = int(self.Cs.shape[2])
+            s, c = int(coarse_split), int(coarse_codes[coarse_split])
+            r = self._rows(x[s * Dh:(s + 1) * Dh]) - self.Cs[s, c] \
+                - self.mus[s, c]
+            return (self.Rs[s, c] @ r).cpu().numpy()
+        return self.project_batch(x[None, :],
+                                  np.asarray(coarse_codes)[None, :])[0]
+
+    def project_batch(self, X, coarse):
+        """[N, D] rows in their local frames given coarse codes [N, 2]."""
+        X = self._rows(X)
+        a = torch.as_tensor(np.asarray(coarse, dtype=np.int64)).to(
+            self.device)
+        Dh = int(self.Cs.shape[2])
+        outs = []
+        for s in range(2):
+            r = (X[:, s * Dh:(s + 1) * Dh] - self.Cs[s][a[:, s]]
+                 - self.mus[s][a[:, s]])
+            outs.append(torch.bmm(self.Rs[s][a[:, s]], r[:, :, None])[:, :, 0])
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+    def reconstruct(self, codes):
+        """One code (coarse, fine) back to an approximate vector."""
+        coarse, fine = codes
+        return self.reconstruct_batch(np.asarray(coarse)[None, :],
+                                      np.asarray(fine)[None, :])[0]
+
+    def reconstruct_batch(self, coarse, fine):
+        """[N, 2] coarse + [N, M] fine codes -> [N, D]:
+        ``R_c^T sub + mu_c + C_c`` per half."""
+        a = torch.as_tensor(np.asarray(coarse, dtype=np.int64)).to(
+            self.device)
+        fc = torch.as_tensor(np.asarray(fine, dtype=np.int64)).to(
+            self.device)
+        F = self.num_fine_splits
+        outs = []
+        for s in range(2):
+            sx = torch.cat([self.subs[s, f][fc[:, s * F + f]]
+                            for f in range(F)], dim=1)         # [N, Dh]
+            Rt = self.Rs[s][a[:, s]].transpose(1, 2)
+            r = torch.bmm(Rt, sx[:, :, None])[:, :, 0]
+            outs.append(r + self.mus[s][a[:, s]] + self.Cs[s][a[:, s]])
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+    def get_subquantizer_distances(self, x, coarse_codes, coarse_split=None):
+        """Squared distances of the locally projected query to every
+        subquantizer centroid (the ADC tables): a list of [S] arrays, one
+        per subquantizer of the requested split(s)."""
+        splits = ([coarse_split] if coarse_split is not None else range(2))
+        F, Dsub = self.num_fine_splits, int(self.subs.shape[3])
+        dists = []
+        for s in splits:
+            px = torch.as_tensor(self.project(x, coarse_codes,
+                                              coarse_split=s)).to(self.device)
+            for f in range(F):
+                d = px[f * Dsub:(f + 1) * Dsub][None, :] - self.subs[s, f]
+                dists.append((d * d).sum(dim=1).cpu().numpy())
+        return dists
+
+    def get_cell_id_for_coarse_codes(self, coarse_codes):
+        return int(coarse_codes[1]) + int(coarse_codes[0]) * self.V
+
+    def get_coarse_codes_for_cell_id(self, cell_id):
+        return (int(cell_id) // self.V, int(cell_id) % self.V)
 
     # ---------------------------------------------------------- persistence
 

@@ -360,11 +360,13 @@ def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
 
     Two stages, like tpu_query.py:693-759: a preselect of ``K_pre`` rows
     per query by ``||f||^2 - 2 f.x`` (one matmul), then an exact re-score
-    of the survivors. The preselect runs in fp32 with TF32 off (the JAX
-    package used the TPU's default bf16 passes there).
+    of the survivors. On a float32 store the preselect runs in fp32 with
+    TF32 off (the JAX package used the TPU's default bf16 passes there);
+    on a bfloat16 store it runs in bfloat16, as JAX's does.
 
     :param X: [NQ, D] queries
-    :param feats: [cap, D] insertion-order feature store
+    :param feats: [cap, D] insertion-order feature store (float32 or
+        bfloat16)
     :param feats_sq: [cap] float32 row norms squared
     :param nb: occupied rows (rows >= nb are capacity pads)
     :param n_occ: occupied cells, reported as ``visited``
@@ -380,7 +382,11 @@ def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
     out = []
     for lo in range(0, NQ, QCH):
         Xc = X[lo:lo + QCH].to(torch.float32)
-        pre = feats_sq[None, :] - 2.0 * (Xc @ feats.T).to(torch.float32)
+        # The preselect reads the store in its own dtype (the queries are
+        # cast, not the store: tpu_query.py:725-729); the survivors are
+        # re-scored in float32.
+        pre = feats_sq[None, :] - 2.0 * (Xc.to(feats.dtype) @ feats.T).to(
+            torch.float32)
         pre[:, nb:] = float("inf")
         vals, rows_pre = torch.topk(pre, K_pre, dim=1, largest=False,
                                     sorted=True)

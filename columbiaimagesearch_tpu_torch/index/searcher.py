@@ -17,8 +17,12 @@ PCA-projected on the device (searcher.py:503-504, 1078-1079, 1374-1375).
 Differences from the JAX searcher:
 
 - The rerank feature store lives on the device only (no host mirror):
-  capacity growth copies it device to device. It is float32; the
-  bfloat16 store (``rerank_dtype``) is not ported yet.
+  capacity growth copies it device to device. Its dtype follows the JAX
+  plan (``_plan_rerank_dtype``: float32 while one store copy fits the
+  budget, else bfloat16; ``rerank_dtype`` pins it), with the budget read
+  from the card (``torch.cuda.mem_get_info``) rather than the v5e size.
+  Candidates are gathered in the store's dtype and upcast to float32
+  before the exact distance.
 - Appends write into the capacity buffers in place where the JAX searcher
   donated them. A stale query snapshot reads only rows below its own
   count, which appends never touch, and growth allocates fresh buffers,
@@ -40,22 +44,29 @@ run in the coalescer's and the HTTP handlers' threads); the device buffers
 are built outside it, so later in-place appends stay legal.
 
 ``codestore_path`` persists the codes in the native store
-(searcher.py:405-416, 486-492). The bfloat16 rerank store, ``get_cell``
-and wide-V mode (V >= 8192) are not ported yet (ROADMAP.md).
+(searcher.py:405-416, 486-492). Wide-V mode (V >= 8192) is not ported yet
+(ROADMAP.md).
+
+The host reference path is ported too: ``LOPQSearcherBase`` (the
+multisequence walk, per-cluster LUT memoization, ADC ranking;
+searcher.py:176-258) and the dict-backed ``LOPQSearcher``
+(searcher.py:261-287), the oracle the device searchers are held to.
 """
 
 import threading
-from collections import namedtuple
+from collections import defaultdict, namedtuple
+from itertools import count
 
 import numpy as np
 import torch
 
-from columbiaimagesearch_tpu_torch.device import free_bytes
+from columbiaimagesearch_tpu_torch.device import device_bytes, free_bytes
 from columbiaimagesearch_tpu_torch.index.csr import (
     append_and_build_csr,
     append_rows,
 )
 from columbiaimagesearch_tpu_torch.index.model import LOPQCode, LOPQModelPCA
+from columbiaimagesearch_tpu_torch.index.multisequence import multisequence
 from columbiaimagesearch_tpu_torch.index.probe import (
     escalate_probe,
     prefer_brute,
@@ -135,7 +146,128 @@ def _row_norms_sq(f, chunk=1 << 20):
     return out
 
 
-class LOPQSearcherTorch:
+class LOPQSearcherBase:
+    """The reference searcher's host query path (searcher.py:176-258):
+    walk cells in multisequence order until the quota is covered, rank
+    the candidates by ADC with per-cluster LUT memoization. Subclasses
+    provide ``add_codes`` and ``get_cell``."""
+
+    def __init__(self):
+        self.nb_indexed = 0
+        self.verbose = 0
+
+    def get_nb_indexed(self):
+        return self.nb_indexed
+
+    def add_data(self, data, ids=None, num_procs=1):
+        """Encode raw vectors (one ``predict_batch``) and index them;
+        ``num_procs`` is the reference's and is ignored."""
+        del num_procs
+        coarse, fine = self.model.predict_batch(data)
+        self.add_codes((coarse, fine), ids)
+
+    def add_codes_from_dict(self, codes_dict):
+        """Index ``{id: (coarse, fine)}``: the ids are the keys in order,
+        the codes their values (searcher.py:195-198)."""
+        ids = list(codes_dict.keys())
+        self.add_codes([codes_dict[k] for k in ids], ids)
+
+    def _coarse_host(self):
+        """The coarse codebooks as float32 numpy, read once."""
+        cs = getattr(self, "_cs_host", None)
+        if cs is None:
+            cs = self._cs_host = [c.cpu().numpy() for c in self.model.Cs]
+        return cs
+
+    def get_result_quota(self, x, quota=10):
+        """Probe cells in distance order until ``quota`` candidates are
+        covered (searcher.py:200-210): (candidates, cells visited)."""
+        retrieved = []
+        visited = 0
+        for _, cell in multisequence(x, self._coarse_host()):
+            retrieved += self.get_cell(cell)
+            visited += 1
+            if len(retrieved) >= quota:
+                break
+        return retrieved, visited
+
+    def compute_distances(self, x, items):
+        """ADC distances, one LUT per coarse cluster and split
+        (searcher.py:212-233): a list of (distance, item)."""
+        memo = [{}, {}]
+
+        def luts(coarse):
+            c0, c1 = int(coarse[0]), int(coarse[1])
+            if c0 not in memo[0]:
+                memo[0][c0] = self.model.get_subquantizer_distances(
+                    x, coarse, coarse_split=0)
+            if c1 not in memo[1]:
+                memo[1][c1] = self.model.get_subquantizer_distances(
+                    x, coarse, coarse_split=1)
+            return memo[0][c0] + memo[1][c1]
+
+        results = []
+        for item in items:
+            coarse, fine = item[1]
+            tables = luts(coarse)
+            dist = sum(tables[i][fc] for i, fc in enumerate(fine))
+            results.append((dist, item))
+        return results
+
+    def search(self, x, quota=10, limit=None, with_dists=False):
+        """Rank the probed candidates by ADC (searcher.py:235-252):
+        (results, cells visited)."""
+        if isinstance(self.model, LOPQModelPCA):
+            x = self.model.apply_PCA(x).cpu().numpy()
+        x = np.asarray(x, dtype=np.float32)
+        retrieved, visited = self.get_result_quota(x, quota)
+        results = sorted(self.compute_distances(x, retrieved),
+                         key=lambda d: d[0])
+        results = results[:quota if limit is None else limit]
+        if with_dists:
+            out = [ResultDist(item[0], item[1], d) for d, item in results]
+        else:
+            out = [Result(item[0], item[1]) for d, item in results]
+        return out, visited
+
+    def add_codes(self, codes, ids=None):
+        raise NotImplementedError()
+
+    def get_cell(self, cell):
+        raise NotImplementedError()
+
+
+class LOPQSearcher(LOPQSearcherBase):
+    """In-RAM dict index; an id already in a cell is not added again
+    (searcher.py:261-287, reference lopq/lopq/search.py:310-382)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.index = defaultdict(list)
+        self._cell_ids = defaultdict(set)
+
+    def add_codes(self, codes, ids=None):
+        if ids is None:
+            ids = count()
+        if (isinstance(codes, tuple) and len(codes) == 2
+                and hasattr(codes[0], "ndim")):
+            coarse, fine = codes
+            codes = [LOPQCode(tuple(c), tuple(f))
+                     for c, f in zip(coarse, fine)]
+        for item_id, code in zip(ids, codes):
+            cell = tuple(int(c) for c in code[0])
+            if item_id in self._cell_ids[cell]:
+                continue
+            self.index[cell].append((item_id, code))
+            self._cell_ids[cell].add(item_id)
+            self.nb_indexed += 1
+
+    def get_cell(self, cell):
+        return self.index[tuple(int(c) for c in cell)]
+
+
+class LOPQSearcherTorch(LOPQSearcherBase):
     """Device-resident CSR multi-index with batched probed queries."""
 
     #: appended chunks are sentinel-padded to this multiple
@@ -146,18 +278,41 @@ class LOPQSearcherTorch:
     #: every REPROBE_EVERY-th wave restarts the ladder from its floor so
     #: the tier hint can shift back down
     REPROBE_EVERY = 32
+    #: device memory (bytes) the rerank store must leave free for the code
+    #: buffers, the CSR view, an append chunk and wave transients
+    #: (searcher.py:315)
+    RERANK_HEADROOM_BYTES = 2.25e9
+
+    @classmethod
+    def rerank_f32_budget(cls, device):
+        """Bytes a float32 rerank store may take on ``device`` before
+        "auto" picks bfloat16: the card's memory size
+        (``torch.cuda.mem_get_info``; on the CPU the fixed
+        ``device.CPU_DEVICE_BYTES``) less the headroom."""
+        return device_bytes(device) - cls.RERANK_HEADROOM_BYTES
+
+    @classmethod
+    def _plan_rerank_dtype(cls, rerank_dtype, cap, Dr, *, device):
+        """The rerank store's dtype from the CAPACITY plan, budgeted at one
+        store copy (searcher.py:325-338): it changes only when ``cap``
+        does, and capacity growth is a rebuild anyway."""
+        if rerank_dtype == "bfloat16":
+            return torch.bfloat16
+        if (rerank_dtype == "auto"
+                and 4 * cap * Dr > cls.rerank_f32_budget(device)):
+            return torch.bfloat16
+        return torch.float32
 
     def __init__(self, model, probe_width=None, codestore_path=None,
                  rerank_dtype="auto", capacity_hint=0):
         """The JAX searcher's arguments in its order (searcher.py:340).
         ``codestore_path`` opens the durable native store
         (``native/codestore.py``): rows it holds are queued for the first
-        refresh, and every ``add_codes`` appends to it. The bfloat16 rerank
-        store is not ported yet and raises."""
-        if rerank_dtype not in ("auto", "float32"):
-            raise NotImplementedError(
-                f"rerank_dtype={rerank_dtype!r}: only the float32 rerank "
-                "store is ported (ROADMAP.md, Queue 1 #8)")
+        refresh, and every ``add_codes`` appends to it. ``rerank_dtype``:
+        "float32", "bfloat16" (half the store's memory, distances from
+        bfloat16-rounded rows), or "auto" (see ``_plan_rerank_dtype``)."""
+        super().__init__()
+        self.rerank_dtype = rerank_dtype
         self.model = model
         self.device = model.device
         self.probe_width = probe_width
@@ -180,7 +335,7 @@ class LOPQSearcherTorch:
         self._dedup = IncrementalDedup()
         self._buf_cells = None  # device [cap] int32, sentinel-padded
         self._buf_fine = None   # device [cap, M] uint8
-        self._buf_feats = None  # device [cap, D] float32 rerank features
+        self._buf_feats = None  # device [cap, D] rerank features
         self._cap = 0
         self._n_dev = 0
         self._dev = None        # model tables + codes/cell_start/order
@@ -290,12 +445,6 @@ class LOPQSearcherTorch:
                      if isinstance(self.model, LOPQModelPCA) else data)
         self.add_codes((coarse, fine), ids, feats=feats)
 
-    def add_codes_from_dict(self, codes_dict):
-        """Index ``{id: (coarse, fine)}``: the ids are the keys in order,
-        the codes their values (searcher.py:195-198)."""
-        ids = list(codes_dict.keys())
-        self.add_codes([codes_dict[k] for k in ids], ids)
-
     @property
     def has_rerank_feats(self):
         """True when the device feature store covers every indexed row."""
@@ -392,11 +541,12 @@ class LOPQSearcherTorch:
             self._buf_cells, self._buf_fine, chunk_c.to(dev),
             chunk_f.to(dev), offset, V)
         if self._feats_ok:
-            if rebuild or self._buf_feats is None:
-                old = self._buf_feats
-                Dr = (feats_new if feats_new is not None else old).shape[1]
-                fbuf = torch.zeros((self._cap, Dr), dtype=torch.float32,
-                                   device=dev)
+            old = self._buf_feats
+            Dr = (feats_new if feats_new is not None else old).shape[1]
+            fdt = self._plan_rerank_dtype(self.rerank_dtype, self._cap, Dr,
+                                          device=dev)
+            if rebuild or old is None or old.dtype != fdt:
+                fbuf = torch.zeros((self._cap, Dr), dtype=fdt, device=dev)
                 if old is not None:
                     fbuf[:n_old] = old[:n_old]
                 if feats_new is not None:
@@ -431,6 +581,23 @@ class LOPQSearcherTorch:
                 return self._dev, None, None, None, 0
             return (self._dev, self._ids[:n], self._cells[:n],
                     self._fine[:n], n)
+
+    def get_cell(self, cell):
+        """Every (id, code) pair of one cell, in insertion order
+        (searcher.py:752-768): a host scan, for API parity, not a query
+        path."""
+        _, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
+        if nb == 0:
+            return []
+        V, S = self.model.V, self.model.subquantizer_clusters
+        cdt, fdt = code_dtype_for(V), code_dtype_for(S)
+        c = int(cell[0]) * V + int(cell[1])
+        out = []
+        for r in np.nonzero(cells_arr == c)[0]:
+            coarse = (cdt(cells_arr[r] // V), cdt(cells_arr[r] % V))
+            fine = tuple(fdt(v) for v in fine_arr[r])
+            out.append((_pyid(ids_arr[r]), LOPQCode(coarse, fine)))
+        return out
 
     # --------------------------------------------------------------- search
 
@@ -508,8 +675,8 @@ class LOPQSearcherTorch:
         - the LUT route's tables [2, B, F, S] float32, or the direct
           route's gathered rotated residuals and differences (~3 x Dh
           float32 per slot);
-        - the rerank's gathered features and differences (2 x R x D
-          float32).
+        - the rerank's gathered features in the store's dtype, their
+          float32 upcast (a bfloat16 store only) and the differences.
 
         ``chip_smoke.py`` holds this against the measured peak allocation
         of a 100-query wave and fails if the model is below it. At 10.5M
@@ -532,7 +699,9 @@ class LOPQSearcherTorch:
         else:
             per_q += Q * Dh * 12
         if R and self._buf_feats is not None:
-            per_q += 2 * R * int(self._buf_feats.shape[1]) * 4
+            esz = self._buf_feats.element_size()
+            per_q += R * int(self._buf_feats.shape[1]) * (
+                8 + (esz if esz < 4 else 0))
         return per_q
 
     def _wave_cap(self, Q, R):

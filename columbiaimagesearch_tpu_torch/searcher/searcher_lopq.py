@@ -19,18 +19,17 @@ Re-design of the reference's SearcherLOPQHBase
   reranking with re-sort, near-dup threshold filter, s3_url info fetch —
   with reranking on the device when the feature store is resident.
 
-Backends: ``LOPQSearcherTorch`` (the probed multi-index), or with
-``exact=True`` the port's ``ExhaustiveADCSearcher``. The face
+Backends: ``LOPQSearcherTorch`` (the probed multi-index), with
+``sharded=True`` the row-sharded ``parallel.sharded.ShardedLOPQSearcher``
+over every visible card (one CPU shard on a CPU facade), or with
+``exact=True`` (which wins) the port's ``ExhaustiveADCSearcher``. The face
 configuration (``detector_type="face"``, ``featurizer_type="face"``,
 conf/conf_search_face_local.json) runs on the port's conv-HOG detector and
 FaceResNet embedder (models/face_detector.py, models/face.py): each
-detected face is a query of the wave, with ids ``<sha1>_<bbox>``. Not
-ported yet, each raising ``NotImplementedError`` (ROADMAP.md, still to
-port): ``sharded=True`` (#14) and the bfloat16 rerank store
-(``rerank_dtype="bfloat16"``; Queue 1 #8). ``codestore_path`` backs the
-probed searcher with the native code store (searcher_lopq.py:52, 134).
-``rerank_dtype="auto"`` is the float32 store, as the JAX plan picks while
-the store fits.
+detected face is a query of the wave, with ids ``<sha1>_<bbox>``.
+``codestore_path`` backs the probed searcher with the native code store
+(searcher_lopq.py:52, 134); ``rerank_dtype`` ("auto", "float32",
+"bfloat16") and ``capacity_hint`` go to the probed and sharded searchers.
 """
 
 import time
@@ -59,21 +58,14 @@ class SearcherLOPQ(GenericSearcher):
                  train_at_init=False, probe_width=None, sharded=False,
                  exact=False, codestore_path=None, store_rerank_feats=False,
                  rerank_dtype="auto", capacity_hint=0, **kwargs):
-        if sharded:
-            raise NotImplementedError(
-                "sharded=True: multi-GPU serving is not ported yet "
-                "(ROADMAP.md, still to port #14)")
-        if rerank_dtype not in ("auto", "float32"):
-            raise NotImplementedError(
-                f"rerank_dtype={rerank_dtype!r}: only the float32 rerank "
-                "store is ported (ROADMAP.md, Queue 1 #8)")
         self.sharded = sharded
         self.exact = exact
         #: keep index-space features resident on the device at indexing
         #: time so reranking runs there (reference production config
         #: serves with reranking on, conf_search_sbpycaffe_release.json:16)
         self.store_rerank_feats = store_rerank_feats
-        #: rerank-store dtype: "auto" and "float32" are the float32 store
+        #: rerank-store dtype: "float32", "bfloat16" or "auto" (float32
+        #: while one store copy fits the device, see LOPQSearcherTorch)
         self.rerank_dtype = rerank_dtype
         #: expected index size; pre-sizes device buffers so production
         #: refreshes append in place
@@ -148,9 +140,29 @@ class SearcherLOPQ(GenericSearcher):
 
             self.searcher = ExhaustiveADCSearcher(self.model)
             return
+        if self.sharded:
+            # Row-shard the index over every visible card (the facade's
+            # own device when it is the CPU).
+            from columbiaimagesearch_tpu_torch.parallel.mesh import (
+                SHARD_AXIS,
+                make_mesh,
+            )
+            from columbiaimagesearch_tpu_torch.parallel.sharded import (
+                ShardedLOPQSearcher,
+            )
+
+            mesh = make_mesh(axis=SHARD_AXIS,
+                             devices=(None if self.device.type == "cuda"
+                                      else [self.device]))
+            self.searcher = ShardedLOPQSearcher(
+                self.model, mesh=mesh, probe_width=self.probe_width,
+                rerank_dtype=self.rerank_dtype,
+                capacity_hint=self.capacity_hint)
+            return
         self.searcher = LOPQSearcherTorch(
             self.model, probe_width=self.probe_width,
             codestore_path=self.codestore_path,
+            rerank_dtype=self.rerank_dtype,
             capacity_hint=self.capacity_hint)
 
     def get_train_features(self, nb_features, start_date=START_DATE):

@@ -288,10 +288,27 @@ def test_unported_options_raise(store):
     base = dict(model_type="lopq", V=V, M=M, subquantizer_clusters=S,
                 detector_type="full", featurizer=_NoFeaturizer(),
                 device="cpu")
-    for kw, match in ((dict(sharded=True), "#14"),
-                      (dict(rerank_dtype="bfloat16"), "Queue 1 #8")):
-        with pytest.raises(NotImplementedError, match=match):
-            SearcherLOPQ(**base, **kw)
+    # Ported since: sharded=True builds the JAX facade's sharded searcher
+    # (one shard on a CPU facade) and the bfloat16 store reaches the
+    # probed searcher, with exact=True still winning.
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        ExhaustiveADCSearcher,
+    )
+    from columbiaimagesearch_tpu_torch.parallel.sharded import (
+        ShardedLOPQSearcher,
+    )
+
+    model = LOPQModel.from_numpy(*store[2], device="cpu")
+    for kw, cls in ((dict(sharded=True), ShardedLOPQSearcher),
+                    (dict(rerank_dtype="bfloat16"), LOPQSearcherTorch),
+                    (dict(sharded=True, exact=True), ExhaustiveADCSearcher)):
+        fac = SearcherLOPQ(**base, **kw, model=model, storer=None,
+                           indexer=None)
+        assert type(fac.searcher) is cls
+        if cls is not ExhaustiveADCSearcher:
+            assert fac.searcher.rerank_dtype == fac.rerank_dtype
+        if cls is ShardedLOPQSearcher:
+            assert fac.searcher.index.devices == [torch.device("cpu")]
     # Training is ported (tests/test_torch_train.py): with no features to
     # harvest, train_at_init fails as the JAX facade does.
     with pytest.raises(RuntimeError, match="Not enough features"):

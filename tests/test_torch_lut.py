@@ -250,3 +250,37 @@ def test_all_clusters_kernel_on_card(cuda_device, NQ):
     torch.testing.assert_close(got, build_luts_plain(*args), rtol=1e-5,
                                atol=1e-4)
     assert torch.equal(got, build_luts(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["side stream", "second card"])
+def test_kernel_launches_on_the_inputs_device(tables, cuda_device, where):
+    """The kernel launches under its inputs' device and that device's
+    current stream: on one card with a side stream current, the tables
+    come out ordered on that stream; with two cards, a ``cuda:1`` tensor
+    launches on card 1 while card 0 is current, then card 0 again (the
+    per-device attribute caches). Each result equals the plain version
+    (rtol 1e-5, atol 1e-4)."""
+    if where == "second card" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    Cs, Rs, mus, subs, x2, isel = tables
+    devs = ([torch.device("cuda", 0)] if where == "side stream"
+            else [torch.device("cuda", 1), torch.device("cuda", 0)])
+    for dev in devs:
+        args = _t(x2, isel, Cs, Rs, mus, subs, device=dev)
+        want = build_luts_plain(*args)
+        torch.cuda.synchronize()
+        before = build_luts.launches
+        if where == "side stream":
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                got = build_luts(*args).clone()    # ordered on `side`
+            torch.cuda.current_stream(dev).wait_stream(side)
+        else:
+            with torch.cuda.device(0):       # card 0 current throughout
+                got = build_luts(*args)
+        torch.cuda.synchronize()
+        assert build_luts.launches == before + 1
+        assert got.device == dev
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

@@ -1,7 +1,8 @@
 """The port runs without JAX: a fresh interpreter imports every module of
 ``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
-exhaustive, the raw-feature fast path and one ``SearcherLOPQ`` facade
-search), trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
+exhaustive, the raw-feature fast path, one ``SearcherLOPQ`` facade
+search, a 2-shard ``ShardedLOPQSearcher`` and the host ``LOPQSearcher``),
+trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
 evaluates one, runs the face embedder and the detector's device half, and
 never
 loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
@@ -49,6 +50,9 @@ from columbiaimagesearch_tpu_torch.pipeline import (bus_printer, cdr_ingester,
                                                     run_processing)
 from columbiaimagesearch_tpu_torch.searcher import (generic_searcher,
                                                     searcher_lopq)
+from columbiaimagesearch_tpu_torch import parallel
+from columbiaimagesearch_tpu_torch.parallel import mesh, sharded
+from columbiaimagesearch_tpu_torch.index import multisequence
 
 rng = np.random.RandomState(0)
 V, F, S, Dh = 8, 2, 16, 8
@@ -97,6 +101,13 @@ assert out["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"][0] == "s11"
 tm = model.LOPQModel.fit(X, n_init=1, random_state=0, V=4, M=4,
                          subquantizer_clusters=8, device="cpu")
 assert eval.get_subquantizer_distortion(X, tm).shape == (4,)
+two = sharded.ShardedLOPQSearcher(
+    m, mesh=mesh.make_mesh(axis=mesh.SHARD_AXIS, devices=["cpu", "cpu"]))
+two.add_codes(m.predict_batch(X), feats=X)
+sres, _ = two.search(X[7], quota=50, limit=5, with_dists=True,
+                     rerank_nb=20)
+assert sres[0].id == 7 and sres[0].dist == 0.0, sres
+hres, _ = searcher.LOPQSearcher(m).search(X[7], quota=10)
 tpm = model.LOPQModelPCA.fit(X @ P.T, pca_dims=2 * Dh, n_init=1,
                              random_state=0, V=4, M=4,
                              subquantizer_clusters=8, device="cpu")

@@ -311,9 +311,9 @@ def test_add_data_takes_jax_positional_order(corpus):
 
 def test_init_takes_jax_positional_order(corpus, tmp_path):
     """A third positional argument is ``codestore_path`` on both searchers
-    (JAX searcher.py:340) and opens the native code store; the port raises
-    for the bfloat16 store, which it has not ported, and takes
-    ``capacity_hint`` fifth."""
+    (JAX searcher.py:340) and opens the native code store; the fourth is
+    ``rerank_dtype`` (the bfloat16 store is ported) and ``capacity_hint``
+    is fifth."""
     import inspect
 
     from columbiaimagesearch_tpu.index.searcher import LOPQSearcherTPU
@@ -326,7 +326,7 @@ def test_init_takes_jax_positional_order(corpus, tmp_path):
     cs = LOPQSearcherTorch(tm, None, str(tmp_path / "codes"))
     assert cs._codestore is not None and cs._codestore.m == tm.M
     cs._codestore.close()
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        LOPQSearcherTorch(tm, None, None, "bfloat16")
+    bf = LOPQSearcherTorch(tm, None, None, "bfloat16")
+    assert bf.rerank_dtype == "bfloat16" and bf._codestore is None
     s = LOPQSearcherTorch(tm, 8, None, "float32", 50_000)
     assert (s.probe_width, s.capacity_hint) == (8, 50_000)

@@ -430,8 +430,9 @@ def test_eval_helpers_match_jax_on_one_model():
     np.testing.assert_array_equal(
         teval.compute_all_neighbors(X[:50], X, just_nn=False, **CPU)[:, :5],
         jeval.compute_all_neighbors(X[:50], X, just_nn=False)[:, :5])
-    with pytest.raises(NotImplementedError, match="reconstruct_batch"):
-        teval.get_proportion_of_reconstructions_with_same_codes(X, tm)
+    # Ported with LOPQModel.reconstruct_batch: the same fraction.
+    assert teval.get_proportion_of_reconstructions_with_same_codes(X, tm) \
+        == jeval.get_proportion_of_reconstructions_with_same_codes(X, jm)
 
 
 # ------------------------------------------------------------ the facade
