@@ -2522,6 +2522,7 @@ def phase_pipeline(dev, card, db, weights, sd, cfg=None):
     )
     from columbiaimagesearch_tpu_torch.native.imgpipe import (
         imgpipe_available,
+        read_coeffs_batch,
     )
     from columbiaimagesearch_tpu_torch.pipeline.processor import (
         ExtractionProcessor,
@@ -2599,11 +2600,15 @@ def phase_pipeline(dev, card, db, weights, sd, cfg=None):
     if missing:
         raise AssertionError(f"pipeline: {len(missing)} decodable images "
                              f"have no fc7 column")
-    # The card's machine has no libjpeg headers, so imgpipe does not build
-    # there and PIL refuses the truncated JPEG; libjpeg would fill the
-    # missing scan with gray and extract it.
+    # The last update holds a PNG, a GIF and the truncated JPEG, so the
+    # JPEG is its wave's dominant size and takes the coefficient route
+    # (the processor's featurizer decodes on the device by default), whose
+    # reader fills the missing scan with gray as libjpeg does: it is
+    # extracted. On the pixel route PIL would refuse it (imgpipe does not
+    # build on the card's machine).
     bad = rows[sha1s[-1]]
-    want_failed = not imgpipe_available()
+    bad_status = int(read_coeffs_batch([files[-1][1]], 8, 64, 64)[4][0])
+    want_failed = not (bad_status == 0 or imgpipe_available())
     if want_failed != (bad.get(f"ext:{extr}_failed") == b"1"
                        and col not in bad):
         raise AssertionError(f"pipeline: the truncated JPEG's columns "
@@ -2612,7 +2617,7 @@ def phase_pipeline(dev, card, db, weights, sd, cfg=None):
     log(f"pipeline: store checks passed: {len(sizes)} updates of {sizes} "
         f"images, each processed and completed; fc7 for all {n_good} "
         f"decodable images; the truncated JPEG "
-        f"{'failed' if want_failed else 'decoded by imgpipe'}")
+        f"{'failed' if want_failed else 'extracted (coefficient route)'}")
 
     seconds2, lines2, per_update2 = _run_processing(conf_path, env,
                                                     cfg["timeout"])
@@ -2625,85 +2630,103 @@ def phase_pipeline(dev, card, db, weights, sd, cfg=None):
     log(f"pipeline: a second --once run created and processed nothing in "
         f"{seconds2:.2f}s")
 
-    # fc7 of sampled images: the stored column against the card
-    # featurizer called directly on the same bytes (the processor's decode
-    # route; without imgpipe, as on the card's machine, its pixels are
-    # featurize_batch's: PIL decode, then the host Lanczos resize), and
-    # against the CPU forward of the same pixels.
-    pick = np.linspace(0, n_good - 3, cfg["sample"]).astype(int)
-    raws = [files[i][1] for i in pick]
-    stored = np.stack([featB64decode(rows[sha1s[i]][col], "sentibank")
-                       for i in pick])
-
-    def unit(x):
-        return x / np.linalg.norm(x, axis=1, keepdims=True)
-
-    card_f = SentibankFeaturizer(params=sd, device=dev)
-    on_card, status = card_f.featurize_buffers(raws)
-    pix, _ = card_f.decode_wave(raws)
-    cpu_f = SentibankFeaturizer(params=sd, device="cpu")
-    on_cpu = unit(cpu_f.featurize_pixel_wave(pix)[0].numpy())
-    del cpu_f
-    card_err = float(np.abs(stored - unit(on_card)).max())
-    cpu_err = float(np.abs(stored - on_cpu).max())
-    log(f"pipeline: {len(pick)} sampled images' stored fc7 (unit norm) vs "
-        f"the card's featurize_buffers on the same bytes: max_abs_err="
-        f"{card_err:.3e} (atol {FC7_SAMPLE_ATOL}); vs the CPU forward of "
-        f"the same pixels: max_abs_err={cpu_err:.3e} (rtol {FC7_RTOL}, "
-        f"atol {FC7_ATOL})")
-    if any(status) or card_err > FC7_SAMPLE_ATOL:
-        raise AssertionError("pipeline: stored fc7 differs from the card's "
-                             "featurize_buffers")
-    np.testing.assert_allclose(stored, on_cpu, rtol=FC7_RTOL, atol=FC7_ATOL)
-
     # Where an update's time goes: the processor's stages replayed one
     # after another in this process (the subprocess overlaps decode and
-    # forward), the writes into a scratch store.
+    # forward), in its waves of PIPELINE_CHUNK images and on its routes
+    # (the card featurizer decodes on the device, as the processor's),
+    # the writes into a scratch store.
+    card_f = SentibankFeaturizer(params=sd, device=dev, device_decode=True)
     proc = ExtractionProcessor(
         KVIndexer(path=os.path.join(work, "split.db")),
         GenericExtractor("full", "sentibank", "image", featurizer=card_f),
         nb_threads=int(conf["PROC_nb_threads"]))
-    splits = []
+    pick = np.linspace(0, n_good - 3, cfg["sample"]).astype(int)
+    picked = {sha1s[i] for i in pick}
+    replay, replay_pix = {}, {}
+    splits, routes = [], []
     for (uid, _), sha1_list in zip(updates, lists):
         timer = StageTimer()
         with timer.stage("fetch"):
             got = kv.get_rows_by_batch(sha1_list, kv.table_sha1infos_name)
             buffers = proc.fetch_buffers(got)
         raws = [buffers[r].getvalue() for r, _ in got]
+        keys = [r for r, _ in got]
         feats, status = [], []
+        before = dict(card_f.route_counts)
         for lo in range(0, len(raws), card_f.PIPELINE_CHUNK):
             with timer.stage("decode"):
-                pix, st = card_f.decode_wave(raws[lo:lo + card_f.PIPELINE_CHUNK])
+                prep = card_f.prepare_wave(
+                    raws[lo:lo + card_f.PIPELINE_CHUNK])
             with timer.stage("forward"):
+                pix, st = card_f.wave_pixels(prep)
                 out, _ = card_f.featurize_pixel_wave(pix)
                 feats.append(out.cpu().numpy())
                 sync()
+            for j, k in enumerate(keys[lo:lo + card_f.PIPELINE_CHUNK]):
+                if k in picked:
+                    replay_pix[k] = (pix[j].cpu().numpy()
+                                     if isinstance(pix, torch.Tensor)
+                                     else pix[j])
             status.extend(st)
         feats = np.concatenate(feats)
+        for k, x, st in zip(keys, feats, status):
+            if k in picked and st == 0:
+                replay[k] = x
+        route = {k: card_f.route_counts[k] - before[k] for k in before}
+        routes.append(route)
         with timer.stage("encode"):
             cols = {r: {col: normfeatB64encode(x)}
                     for (r, _), x, st in zip(got, feats, status) if st == 0}
         with timer.stage("write"):
             proc.indexer.push_dict_rows(cols, kv.table_sha1infos_name)
         t = {k: v for k, v in timer.totals.items()}
-        splits.append(dict(t, images=len(raws)))
+        splits.append(dict(t, images=len(raws), routes=route))
         log(f"pipeline: update {uid.rsplit('-', 2)[0]} replayed stage by "
-            f"stage ({len(raws)} images): buffer fetch {t['fetch']:.3f}s, "
-            f"decode and resize (host, "
-            f"{'imgpipe' if imgpipe_available() else 'PIL'}) "
-            f"{t['decode']:.3f}s, device forward (upload, preprocess, "
-            f"fc7, download) {t['forward']:.3f}s, column encode "
-            f"{t['encode']:.3f}s + sqlite write {t['write']:.3f}s; ms an "
-            f"image: {1e3 * t['fetch'] / len(raws):.3f} / "
+            f"stage ({len(raws)} images; routes {route}: a wave's "
+            f"dominant-size 4:2:0 JPEGs take the coefficient route, and "
+            f"these random sizes are mostly unique): buffer fetch "
+            f"{t['fetch']:.3f}s, host decode (coefficient read, PIL decode "
+            f"and resize on the pixel route) {t['decode']:.3f}s, device "
+            f"(upload, reconstruction, preprocess, fc7, download) "
+            f"{t['forward']:.3f}s, column encode {t['encode']:.3f}s + "
+            f"sqlite write {t['write']:.3f}s; ms an image: "
+            f"{1e3 * t['fetch'] / len(raws):.3f} / "
             f"{1e3 * t['decode'] / len(raws):.3f} / "
             f"{1e3 * t['forward'] / len(raws):.3f} / "
             f"{1e3 * (t['encode'] + t['write']) / len(raws):.3f} [{card}]")
+
+    # fc7 of sampled images: the stored column against the card
+    # featurizer on the same bytes in the processor's waves (the replay
+    # above: the same routes), and against the CPU forward of the same
+    # pixels.
+    stored = np.stack([featB64decode(rows[sha1s[i]][col], "sentibank")
+                       for i in pick])
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    on_card = np.stack([replay[sha1s[i]] for i in pick])
+    cpu_f = SentibankFeaturizer(params=sd, device="cpu")
+    on_cpu = unit(cpu_f.featurize_pixel_wave(np.stack(
+        [replay_pix[sha1s[i]] for i in pick]))[0].numpy())
+    del cpu_f
+    card_err = float(np.abs(stored - unit(on_card)).max())
+    cpu_err = float(np.abs(stored - on_cpu).max())
+    log(f"pipeline: {len(pick)} sampled images' stored fc7 (unit norm) vs "
+        f"the card's featurizer on the same bytes in the processor's waves: "
+        f"max_abs_err={card_err:.3e} (atol {FC7_SAMPLE_ATOL}); vs the CPU "
+        f"forward of the same pixels: max_abs_err={cpu_err:.3e} (rtol "
+        f"{FC7_RTOL}, atol {FC7_ATOL})")
+    if card_err > FC7_SAMPLE_ATOL:
+        raise AssertionError("pipeline: stored fc7 differs from the card's "
+                             "featurizer")
+    np.testing.assert_allclose(stored, on_cpu, rtol=FC7_RTOL, atol=FC7_ATOL)
     proc.indexer._shared.close()
     return dict(work=work, files=files, sha1s=sha1s,
                 n_rows=n_good + (not want_failed),
                 seconds=seconds, img_s=n_good / seconds,
-                per_update=per_update, splits=splits, card_err=card_err,
-                cpu_err=cpu_err)
+                per_update=per_update, splits=splits, routes=routes,
+                card_err=card_err, cpu_err=cpu_err)
 
 
 def phase_serving(dev, card, trained, cfg=None):
@@ -2831,6 +2854,22 @@ def phase_serving(dev, card, trained, cfg=None):
                           kw, out))
             return out
         s.search_device_feats = recording
+        # And each wave's routes: the handlers' preps (one a request) are
+        # decoded JPEG coefficients or pixels.
+        wave_routes = []
+        live_preps = facade.featurizer.featurize_preps
+
+        def counting_preps(preps):
+            coef = pix = 0
+            for kind, payload in preps:
+                if kind == "pixels":
+                    pix += len(payload["status"])
+                else:
+                    coef += len(payload["ok_idx"])
+                    pix += len(payload["pix_idx"])
+            wave_routes.append((coef, pix))
+            return live_preps(preps)
+        facade.featurizer.featurize_preps = counting_preps
 
         server = make_server(facade, port=0, host="127.0.0.1")
         port = server.server_address[1]
@@ -2911,6 +2950,12 @@ def phase_serving(dev, card, trained, cfg=None):
             f"{s.probe_stats['escalated_queries']} brute_waves="
             f"{s.probe_stats.get('brute_waves', 0)} wave_log="
             f"{s.probe_stats.get('wave_log', [])[-6:]}")
+        log(f"serving: each wave's routes (coefficient, pixel): "
+            f"{wave_routes}; in all {sum(c for c, _ in wave_routes)} "
+            f"coefficient, {sum(p for _, p in wave_routes)} pixel")
+        if not any(c for c, _ in wave_routes):
+            raise AssertionError("serving: no request took the coefficient "
+                                 "route")
         log(f"serving: launches during the phase: lut_build "
             f"{launches['lut']}, adc_scan {launches['adc']}")
         if launches["lut"] <= 0:
@@ -2953,7 +2998,8 @@ def phase_serving(dev, card, trained, cfg=None):
         sync()
         wave_ms = (time.perf_counter() - t0) * 1e3
         log(f"serving: {n_c} requests prepared one after another in one "
-            f"thread (base64, sha1, PIL decode and resize): {prep_ms:.2f} "
+            f"thread (base64, sha1, the JPEG coefficient read): "
+            f"{prep_ms:.2f} "
             f"ms; their _serve_batch wave {wave_ms:.2f} ms [{card}]")
         for j, reply in enumerate(replies):
             _check_reply(reply, sha1s[j % len(bufs)], f"wave request {j}")
@@ -2981,9 +3027,10 @@ def phase_serving(dev, card, trained, cfg=None):
         return dict(launches=launches, first_ms=first_ms, single=single,
                     conc=conc, sizes=sizes, refresh_s=refresh_s,
                     sharded_http=sharded_http,
+                    wave_routes=wave_routes,
                     pipeline={k: pipe[k] for k in (
                         "seconds", "img_s", "per_update", "splits",
-                        "card_err", "cpu_err")})
+                        "routes", "card_err", "cpu_err")})
     finally:
         facade.request_batcher.close()
         shutil.rmtree(work, ignore_errors=True)     # the 262 MB weights file
@@ -3748,6 +3795,687 @@ def phase_face_serving(dev, card, index, cfg=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
+#: wide-V mode at the headline's rows: a V=8192 model derived from the
+#: trained release model (each coarse centroid split into itself and one
+#: seeded index row of its cluster, refined by ``lloyd_steps``
+#: ``dp_lloyd_step``s over ``lloyd_rows`` index rows; children keep their
+#: parent's rotation and mean), waves of ``wave`` on the ladder and one
+#: pinned to rung ``probe`` (the LUT route), then the dense [V^2+1] table
+#: built once from the same sorted rows, against which the sorted square
+#: ``probe``, the strip rung ``strip`` and the sort-free wide square
+#: ``wide_rung`` must return equal rows and distances
+WIDE = dict(V=8192, lloyd_rows=2_000_000, lloyd_steps=3, probe=64,
+            strip=(256, 16), wide_rung=256, seed=0)
+#: model I/O: the release model and the face model through .mat (and the
+#: face model through proto where protobuf imports); a ``rows``-row face
+#: searcher and one wave of ``wave`` queries on each side
+MODEL_IO = dict(rows=262_144, wave=100, seed=0)
+#: the device JPEG decode: ``photos`` synthimg renders at h x w, encoded by
+#: PIL with 4:2:0 subsampling at the qualities in turn; ``baseline``,
+#: ``progressive`` and ``restart`` of them; plus minority-size JPEGs, a
+#: 4:4:4 and a grayscale JPEG, a PNG and two truncated JPEGs (mid-scan,
+#: after SOS), spread over the waves; reconstruction timed at ``wave``
+DECODE = dict(photos=512, h=480, w=640, baseline=256, progressive=128,
+              restart=128, qualities=(75, 90), minority=4, wave=256, seed=0)
+#: the reconstruction's bounds against PIL's full decode and the host
+#: Lanczos resize (tests/test_jpeg_device.py:100-117) and the fc7 cosine
+#: of the two routes (:145-180)
+DECODE_MEAN, DECODE_P99, DECODE_COS = 3.0, 12.0, 0.995
+#: face training: the detector template from ``identities`` x 7 jittered
+#: ``face_synth`` head crops and ``hard`` hard negatives plus 12 crops of
+#: each of ``neg_scenes`` face-free scenes, ``steps`` steps on the card
+#: and on the CPU (templates within rtol 1e-3, atol 1e-5), checked on
+#: ``heldout_scenes`` scenes of held-out identities; the 68-point landmark
+#: net ``lm_steps`` Adam steps on ``lm_ids`` identities x 3 crops, held to
+#: tests/test_face_align68.py:81-91 (loss < 5e-3, held-out error < 0.06)
+FACE_TRAIN = dict(identities=57, hard=300, neg_scenes=42, steps=300,
+                  heldout_scenes=8, lm_ids=40, lm_steps=400, seed=0)
+FACE_TRAIN_RTOL, FACE_TRAIN_ATOL = 1e-3, 1e-5
+LANDMARK_LOSS, LANDMARK_ERR = 5e-3, 0.06
+
+
+def _derive_wide_model(dev, s, nb, cfg):
+    """The V=8192 model of WIDE from the trained V=4096 tables of the
+    searcher ``s`` and its index rows. Returns (model, seconds, inertias)."""
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+    from columbiaimagesearch_tpu_torch.parallel import dp_lloyd_step
+
+    m = s.model
+    V = m.V
+    feats = s._dev["feats"][:nb]
+    cells = torch.from_numpy(s._cells[:nb]).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 41)
+    perm = torch.randperm(nb, generator=g, device=dev)
+    Dh = int(m.Cs.shape[2])
+    n_l = min(cfg["lloyd_rows"], nb)
+    t0 = time.perf_counter()
+    Cs, inertias = [], []
+    for h in range(2):
+        own = (cells // V) if h == 0 else (cells % V)
+        # The first row of each cluster in a seeded order: a seeded index
+        # row of the cluster (an empty cluster keeps a copy of its parent).
+        first = torch.full((V,), nb, dtype=torch.int64, device=dev)
+        first.scatter_reduce_(0, own[perm], torch.arange(nb, device=dev),
+                              reduce="amin")
+        child = m.Cs[h].clone()
+        has = first < nb
+        child[has] = feats[perm[first[has]], h * Dh:(h + 1) * Dh]
+        C = torch.cat([m.Cs[h], child])
+        X = feats[perm[:n_l], h * Dh:(h + 1) * Dh]
+        w = torch.ones(n_l, device=dev)
+        for _ in range(cfg["lloyd_steps"]):
+            C, inertia = dp_lloyd_step(X, w, C, 2 * V)
+            inertias.append(float(inertia) / n_l)
+        Cs.append(C)
+        del X, w
+    parent = torch.cat([torch.arange(V, device=dev)] * 2)
+    model = LOPQModel(torch.stack(Cs), m.Rs[:, parent], m.mus[:, parent],
+                      m.subs, device=dev)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    return model, time.perf_counter() - t0, inertias
+
+
+def phase_wide(dev, cfg, state, card):
+    """Wide-V mode (V >= 8192: no dense offsets table) on the headline's
+    rows (see WIDE). Returns (numbers, ``lut_build`` launches on the wide
+    path)."""
+    from columbiaimagesearch_tpu_torch.index import query as qmod
+    from columbiaimagesearch_tpu_torch.index.csr import _offsets
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.lut import (
+        build_luts,
+        build_luts_plain,
+    )
+    from columbiaimagesearch_tpu_torch.index.probe import rung_parts
+    from columbiaimagesearch_tpu_torch.index.query import lopq_query_orig
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    c = WIDE
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    s = state["searcher"]
+    nb = s.get_nb_indexed()
+    feats = s._dev["feats"][:nb]
+    model, derive_s, inertias = _derive_wide_model(dev, s, nb, c)
+    V = model.V
+    if V != c["V"] or V < LOPQSearcherTorch.WIDE_V_THRESHOLD:
+        raise AssertionError(f"wide: derived V={V}")
+    log(f"wide: V={V} model from the trained V={s.model.V} tables (each "
+        f"centroid split into itself and a seeded row of its cluster, "
+        f"{c['lloyd_steps']} dp_lloyd_step(s) a half on "
+        f"{min(c['lloyd_rows'], nb)} index rows: mean inertia "
+        f"{[round(x, 5) for x in inertias]}) in {derive_s:.2f}s [{card}]")
+    t0 = time.perf_counter()
+    coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                               feats, chunk=8192)
+    sync()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws = LOPQSearcherTorch(model, capacity_hint=nb)
+    ws.add_codes((coarse.cpu().numpy(), fine.to(torch.uint8).cpu().numpy()),
+                 feats=feats)
+    del coarse, fine
+    n = ws.get_nb_indexed()
+    sync()
+    build_s = time.perf_counter() - t0
+    d = ws._dev
+    if n != nb or d["cell_start"] is not None:
+        raise AssertionError(f"wide: indexed {n} of {nb} rows, cell_start "
+                             f"{type(d['cell_start'])} (want None)")
+    log(f"wide: lopq_encode {nb} rows at V={V} in {encode_s:.2f}s; "
+        f"LOPQSearcherTorch (wide-V mode, no dense table) indexed them in "
+        f"{build_s:.2f}s; occupied cells={d['n_occ']} [{card}]")
+
+    waves = state["waves"]
+    q, lim = cfg["quota"], cfg["limit"]
+    kw = dict(quota=q, limit=lim, with_dists=True, with_codes=False)
+    build_luts.launches = 0                    # counts the wide path only
+    ladder_ms = []
+    for w in waves:
+        t0 = time.perf_counter()
+        res = ws.search_batch(w, **kw)
+        sync()
+        ladder_ms.append((time.perf_counter() - t0) * 1e3)
+        _check_results(res, lim, "wide ladder wave")
+    ws.probe_width = c["probe"]                 # pin the LUT rung
+    before = build_luts.launches
+    t0 = time.perf_counter()
+    pinned = ws.search_batch(waves[0], **kw)
+    sync()
+    pinned_ms = (time.perf_counter() - t0) * 1e3
+    pin_launches = build_luts.launches - before
+    with mock.patch.object(qmod, "build_luts", build_luts_plain):
+        plain = ws.search_batch(waves[0], **kw)
+    ws.probe_width = None
+    lut_err, swaps = _same_ids_but_ties(pinned, plain, SHARDED_DIST_ATOL,
+                                        "wide pinned LUT wave vs plain")
+    launches = build_luts.launches
+    if pin_launches <= 0:
+        raise AssertionError("wide: the pinned wave launched no lut_build")
+    log(f"wide: {len(waves)} waves of {waves[0].shape[0]} on the ladder "
+        f"{[round(x, 2) for x in ladder_ms]} ms (wave_log "
+        f"{ws.probe_stats.get('wave_log', [])[-3:]}); a wave pinned to rung "
+        f"{c['probe']} {pinned_ms:.2f} ms, {pin_launches} lut_build "
+        f"launch(es), equal to its plain LUT replay but {swaps} rounding-tie "
+        f"swaps (max_abs_dist_err={lut_err:.3e}) [{card}]")
+
+    # The dense table from the same sorted rows: equal results at each
+    # rung kind, since only the bucket bounds' source differs.
+    t0 = time.perf_counter()
+    dense = _offsets(d["cells_sorted"], V)
+    sync()
+    dense_s = time.perf_counter() - t0
+    n_occ = int((dense[1:] > dense[:-1]).sum())
+    if n_occ != d["n_occ"]:
+        raise AssertionError(f"wide: n_occ {d['n_occ']} vs dense {n_occ}")
+    Q, K = _geometry(ws, cfg)
+    tabs = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"])
+    X = waves[1]
+    rung_ms = {}
+    for rung in (c["probe"], c["strip"], c["wide_rung"]):
+        B, SB = rung_parts(rung)
+        args = dict(V=V, B=B, Q=Q, K=K, SB=SB)
+
+        def run_dense():
+            return lopq_query_orig(X, *tabs, dense, d["order"], q, **args)
+
+        def run_wide():
+            return lopq_query_orig(X, *tabs, None, d["order"], q,
+                                   cells_sorted=d["cells_sorted"], **args)
+
+        a, b = run_dense(), run_wide()
+        for name, x, y in zip(("rows", "dists", "total", "n_cells",
+                               "grid_ok"), a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"wide: rung {rung}: {name} differ "
+                                     f"from the dense table's")
+        if dev.type == "cuda":
+            rung_ms[str(rung)] = dict(
+                wide=float(np.median(time_ms(run_wide, 3))),
+                dense=float(np.median(time_ms(run_dense, 3))))
+        log(f"wide: rung {rung} (Q={Q}, K={K}): rows, distances, totals, "
+            f"cells and grid_ok equal to the dense [V^2+1] table's; ms a "
+            f"wave of {X.shape[0]} {rung_ms.get(str(rung))} [{card}]")
+    nbytes = lambda t: t.numel() * t.element_size()
+    common = nbytes(d["codes"]) + nbytes(d["order"])
+    resident = dict(wide=common + nbytes(d["cells_sorted"]),
+                    dense=common + nbytes(dense))
+    log(f"wide: resident index bytes (codes + order + bucket bounds) wide "
+        f"{resident['wide']} vs dense {resident['dense']} (the [V^2+1] "
+        f"table alone {nbytes(dense)}, built in {dense_s * 1e3:.2f} ms); "
+        f"n_occ {n_occ} equal")
+    out = dict(V=V, rows=nb, derive_s=derive_s, encode_s=encode_s,
+               build_s=build_s, ladder_ms=ladder_ms, pinned_ms=pinned_ms,
+               rung_ms=rung_ms, resident_bytes=resident, n_occ=n_occ,
+               lut_launches=launches, lut_max_abs=lut_err, tie_swaps=swaps)
+    del ws, dense, model
+    return out, launches
+
+
+def phase_model_io(dev, card, trained, state, cfg=None):
+    """The release model and the face model through ``export_mat`` /
+    ``load_mat`` (and the face model through proto where protobuf
+    imports): tables bit-equal, one wave of identical ids and distances
+    on each side (see MODEL_IO)."""
+    import shutil
+
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+    from columbiaimagesearch_tpu_torch.index.query import lopq_query_orig
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    cfg = dict(MODEL_IO, **(cfg or {}))
+    work = os.path.join(ROOT, "build", "model_io")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+
+    def same_tables(a, b, what):
+        for t in ("Cs", "Rs", "mus", "subs"):
+            if not torch.equal(getattr(a, t), getattr(b, t).to(
+                    getattr(a, t).device)):
+                raise AssertionError(f"model_io: {what}: {t} differs")
+
+    def mat_round_trip(model, name):
+        path = os.path.join(work, f"{name}.mat")
+        t0 = time.perf_counter()
+        model.export_mat(path)
+        t1 = time.perf_counter()
+        back = LOPQModel.load_mat(path, device=dev)
+        t2 = time.perf_counter()
+        same_tables(model, back, f"{name} .mat")
+        out[name] = dict(mat_bytes=os.path.getsize(path),
+                         export_s=t1 - t0, load_s=t2 - t1)
+        return back
+
+    # The release model (a PCA model writes its LOPQ tables only) against
+    # the main path's index: one wave through each table set.
+    rel = mat_round_trip(trained["release"], "release")
+    s = state["searcher"]
+    d = s._dev
+    Q, K = _geometry(s, HEADLINE)
+    X = state["waves"][0]
+    geo = dict(V=rel.V, B=HEADLINE["B"], Q=Q, K=K)
+    a = lopq_query_orig(X, d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
+                        d["cell_start"], d["order"], HEADLINE["quota"], **geo)
+    b = lopq_query_orig(X, rel.Cs, rel.Rs, rel.mus, rel.subs, d["codes"],
+                        d["cell_start"], d["order"], HEADLINE["quota"], **geo)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("model_io: the reloaded release model's wave "
+                             "differs")
+    del rel
+
+    # The face model: .mat, proto, and a searcher on each.
+    face = trained["face"]["model"]
+    fmat = mat_round_trip(face, "face")
+    try:
+        ppath = os.path.join(work, "face.pb")
+        t0 = time.perf_counter()
+        face.export_proto(ppath)
+        fproto = LOPQModel.load_proto(ppath, device=dev)
+        same_tables(face, fproto, "face proto")
+        again = os.path.join(work, "face2.pb")
+        fproto.export_proto(again)
+        with open(ppath, "rb") as f1, open(again, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("model_io: proto not byte-stable")
+        out["face"]["proto"] = dict(bytes=os.path.getsize(ppath),
+                                    s=time.perf_counter() - t0)
+        proto_case = "protobuf imports: the face model round-trips"
+    except ImportError as e:
+        if "protobuf" not in str(e):
+            raise
+        fproto = None
+        out["face"]["proto"] = "raises ImportError naming protobuf"
+        proto_case = f"protobuf is not installed: export_proto raises ({e})"
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 43)
+    rows = mixture(cfg["rows"], trained["face"]["comp"], g)
+    queries = mixture(cfg["wave"], trained["face"]["comp"], g)
+    kw = dict(quota=1000, limit=10, with_dists=True, with_codes=False)
+    want = None
+    for what, m in (("trained", face), ("from .mat", fmat),
+                    ("from proto", fproto)):
+        if m is None:
+            continue
+        fs = LOPQSearcherTorch(m)
+        fs.add_data(rows)
+        got = [[(r.id, r.dist) for r in res]
+               for res, _ in fs.search_batch(queries, **kw)]
+        if want is None:
+            want = got
+        elif got != want:
+            raise AssertionError(f"model_io: the face model {what} answers "
+                                 f"differently")
+    log(f"model_io: release .mat {out['release']['mat_bytes']} B (export "
+        f"{out['release']['export_s']:.2f}s, load {out['release']['load_s']:.2f}"
+        f"s), tables bit-equal, a {X.shape[0]}-query wave at B="
+        f"{HEADLINE['B']} identical; face .mat {out['face']['mat_bytes']} B, "
+        f"tables bit-equal, a {cfg['wave']}-query wave on {cfg['rows']} rows "
+        f"identical; proto: {proto_case} [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def decode_corpus(dev, cfg):
+    """The decode phase's files (see DECODE): (files [(name, bytes)] with
+    the other files spread among the photos, the photos [n, h, w, 3]
+    uint8, a note on the restart markers)."""
+    import io
+
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.utils.synthimg import (
+        make_render_batch,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 47)
+    h, w = cfg["h"], cfg["w"]
+    render = make_render_batch(64, height=h, width=w, device=dev)
+    photos = np.concatenate([render(g).cpu().numpy()
+                             for _ in range(-(-cfg["photos"] // 64))])
+    restart_note = "restart_marker_rows/_blocks"
+
+    def enc(a, **kw):
+        b = io.BytesIO()
+        Image.fromarray(a).save(b, "JPEG", **kw)
+        return b.getvalue()
+
+    files = []
+    qs = cfg["qualities"]
+    for i in range(cfg["photos"]):
+        kw = dict(quality=qs[i % len(qs)], subsampling=2)
+        if i < cfg["baseline"]:
+            kind = "baseline"
+        elif i < cfg["baseline"] + cfg["progressive"]:
+            kind, kw["progressive"] = "progressive", True
+        else:
+            kind = "restart"
+            if i % 2:
+                kw["restart_marker_rows"] = 1
+            else:
+                kw["restart_marker_blocks"] = 8
+        try:
+            data = enc(photos[i], **kw)
+        except TypeError:            # a Pillow without restart markers
+            kw.pop("restart_marker_rows", None)
+            kw.pop("restart_marker_blocks", None)
+            restart_note = "none: this Pillow writes no restart markers"
+            data = enc(photos[i], **kw)
+        files.append((f"{kind}_{i}", data))
+    extra = [(f"minority_{k}", enc(photos[k][:h * 3 // 4, :w * 3 // 4],
+                                   quality=90))
+             for k in range(cfg["minority"])]
+    extra.append(("444", enc(photos[0], quality=90, subsampling=0)))
+    extra.append(("gray", enc(photos[1][..., 0].copy(), quality=90)))
+    b = io.BytesIO()
+    Image.fromarray(photos[2]).save(b, "PNG")
+    extra.append(("png", b.getvalue()))
+    base = enc(photos[3], quality=90, subsampling=2)
+    sos = base.index(b"\xff\xda")
+    extra.append(("truncated_mid_scan", base[:(sos + len(base)) // 2]))
+    extra.append(("truncated_after_sos",
+                  base[:sos + 2 + ((base[sos + 2] << 8) | base[sos + 3])]))
+    step = max(1, len(files) // (len(extra) + 1))
+    for k, item in enumerate(extra):
+        files.insert((k + 1) * step + k, item)
+    return files, photos, restart_note
+
+
+def phase_decode(dev, card, cfg=None):
+    """The device JPEG decode (see DECODE): the reader against a header
+    parse, the reconstruction against PIL's full decode and the host
+    Lanczos resize, the featurizer's two routes against each other, and
+    the route every dominant-size 4:2:0 JPEG takes."""
+    import io
+
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models.jpeg_device import (
+        CoeffDecoder,
+        pick_msub,
+    )
+    from columbiaimagesearch_tpu_torch.models.preprocess import resize_host
+    from columbiaimagesearch_tpu_torch.models.sentibank import (
+        SentibankFeaturizer,
+        init_params,
+    )
+    from columbiaimagesearch_tpu_torch.native.imgpipe import (
+        coeffs_available,
+        coeffs_build_error,
+        jpeg_dims,
+        read_coeffs_batch,
+    )
+
+    cfg = dict(DECODE, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if not coeffs_available():
+        raise AssertionError(f"decode: the coefficient reader did not "
+                             f"build: {coeffs_build_error()}")
+    t0 = time.perf_counter()
+    files, photos, restart_note = decode_corpus(dev, cfg)
+    names = [n for n, _ in files]
+    bufs = [b for _, b in files]
+    h, w = cfg["h"], cfg["w"]
+    photo_idx = [i for i, n in enumerate(names)
+                 if n.split("_")[0] in ("baseline", "progressive",
+                                        "restart")]
+    others = [n for i, n in enumerate(names) if i not in set(photo_idx)]
+    log(f"decode: {len(files)} files ({cfg['photos']} synthimg photos at "
+        f"{h}x{w}, 4:2:0, quality {cfg['qualities']}: {cfg['baseline']} "
+        f"baseline, {cfg['progressive']} progressive, {cfg['restart']} with "
+        f"restart markers ({restart_note}); {len(others)} others {others})"
+        f" made in {time.perf_counter() - t0:.2f}s")
+
+    # The reader: status and dims against a header parse.
+    msub = pick_msub(h, w)
+    bh, bw = -(-h // 8), -(-w // 8)
+    bh, bw = bh + (bh & 1), bw + (bw & 1)
+    yc, cc, qt, dims, st = read_coeffs_batch(bufs, msub, bh, bw)
+    for name, b, s_, d in zip(names, bufs, st, dims):
+        hw = jpeg_dims(b)
+        want = -3 if (hw is None or name in ("444", "gray")) else 0
+        if s_ != want:
+            raise AssertionError(f"decode: reader status {s_} for {name}, "
+                                 f"want {want}")
+        if want == 0 and list(d) != [hw[0], hw[1], -(-hw[0] // 8),
+                                     -(-hw[1] // 8), -(-hw[0] // 16),
+                                     -(-hw[1] // 16)]:
+            raise AssertionError(f"decode: reader dims {list(d)} for {name}"
+                                 f" against the header's {hw}")
+    pb = [bufs[i] for i in photo_idx]
+    reader_ms = {}
+    for threads in (1, 0):
+        t0 = time.perf_counter()
+        read_coeffs_batch(pb, msub, bh, bw, n_threads=threads)
+        reader_ms[threads or os.cpu_count()] = (
+            (time.perf_counter() - t0) * 1e3 / len(pb))
+    log(f"decode: the reader's statuses and dims equal a header parse on "
+        f"all {len(files)} files; ms an image over the {len(pb)} photos "
+        f"(msub={msub}) by host threads: "
+        f"{ {k: round(v, 3) for k, v in reader_ms.items()} } [{card}]")
+
+    # The reconstruction against PIL's full decode + the host Lanczos.
+    dec = CoeffDecoder(dev)
+    ok = photo_idx
+    diffs, pil_s = [], 0.0
+    worst_mean = 0.0
+    for lo in range(0, len(ok), cfg["wave"]):
+        idx = ok[lo:lo + cfg["wave"]]
+        out = dec.decode(yc[idx], cc[idx], qt[idx], msub=msub, h=h,
+                         w=w).cpu().numpy()
+        for j, i in enumerate(idx):
+            t0 = time.perf_counter()
+            full = np.asarray(Image.open(io.BytesIO(bufs[i])).convert("RGB"))
+            pil_s += time.perf_counter() - t0
+            diff = np.abs(out[j] - resize_host(full).astype(np.float32))
+            worst_mean = max(worst_mean, float(diff.mean()))
+            diffs.append(diff.ravel()[::7])
+    diffs = np.concatenate(diffs)
+    mean, p99 = float(diffs.mean()), float(np.percentile(diffs, 99))
+    if not (mean < DECODE_MEAN and p99 < DECODE_P99):
+        raise AssertionError(f"decode: reconstruction vs PIL mean {mean}, "
+                             f"p99 {p99}")
+    wave = ok[:cfg["wave"]]
+    dyc = torch.from_numpy(yc[wave]).to(dev)
+    dcc = torch.from_numpy(cc[wave]).to(dev)
+    dqt = torch.from_numpy(qt[wave].astype(np.int32)).to(dev)
+    recon_ms = (float(np.median(time_ms(
+        lambda: dec.decode(dyc, dcc, dqt, msub=msub, h=h, w=w), 5)))
+        if dev.type == "cuda" else None)
+    del dyc, dcc, dqt
+    log(f"decode: device reconstruction vs PIL full decode + host Lanczos "
+        f"over {len(ok)} photos: mean {mean:.4f} levels (< {DECODE_MEAN}; "
+        f"worst image {worst_mean:.4f}), p99 {p99:.4f} (< {DECODE_P99}); "
+        f"PIL decode {1e3 * pil_s / len(ok):.3f} ms an image; "
+        f"reconstruction {recon_ms} ms a wave of {len(wave)} [{card}]")
+
+    # The featurizer's two routes on the same weights.
+    sd = init_params(seed=cfg["seed"])
+    f_dev = SentibankFeaturizer(params=sd, device=dev, device_decode=True)
+    f_pix = SentibankFeaturizer(params=sd, device=dev, device_decode=False)
+    f_dev.featurize_buffers(bufs[:8])                 # warm both routes
+    f_pix.featurize_buffers(bufs[:8])
+    sync()
+    before = dict(f_dev.route_counts)
+    t0 = time.perf_counter()
+    fd, st_d = f_dev.featurize_buffers(bufs)
+    sync()
+    dev_s = time.perf_counter() - t0
+    routes = {k: f_dev.route_counts[k] - before[k] for k in before}
+    t0 = time.perf_counter()
+    fp, st_p = f_pix.featurize_buffers(bufs)
+    sync()
+    pix_s = time.perf_counter() - t0
+    truncated = [i for i, n in enumerate(names) if n.startswith("trunc")]
+    for i, (a, b) in enumerate(zip(st_d, st_p)):
+        if i in truncated:
+            # libjpeg fills a truncated scan with gray, and so does the
+            # reader; PIL (the pixel route on a machine without libjpeg
+            # headers) refuses the file.
+            if int(a) != 0:
+                raise AssertionError(f"decode: {names[i]} status {a}")
+        elif int(a) != int(b):
+            raise AssertionError(f"decode: {names[i]}: status {a} on the "
+                                 f"coefficient route, {b} on the pixel")
+    both = [i for i in range(len(bufs))
+            if int(st_d[i]) == 0 and int(st_p[i]) == 0]
+    a, b = fd[both], fp[both]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(b, axis=1))
+    dominant = len(photo_idx) + len(truncated)
+    if cos.min() <= DECODE_COS or routes["coeffs"] != dominant \
+            or routes["coeffs"] <= 0:
+        raise AssertionError(f"decode: fc7 cosine min {cos.min()}, routes "
+                             f"{routes} (want {dominant} coefficient)")
+    numbers = dict(
+        files=len(files), photos=len(pb), msub=msub, restart=restart_note,
+        reader_ms_per_image=reader_ms, recon_ms_per_wave=recon_ms,
+        recon_wave=len(wave), pil_decode_ms=1e3 * pil_s / len(ok),
+        recon_mean=mean, recon_p99=p99, cos_min=float(cos.min()),
+        routes=routes, img_s=dict(coefficient=len(bufs) / dev_s,
+                                  pixel=len(bufs) / pix_s),
+        truncated_pixel_status=[int(st_p[i]) for i in truncated])
+    log(f"decode: featurize_buffers on {len(bufs)} files: coefficient route "
+        f"{numbers['img_s']['coefficient']:.1f} img/s, pixel route (PIL) "
+        f"{numbers['img_s']['pixel']:.1f} img/s; routes {routes} (every "
+        f"dominant-size 4:2:0 JPEG on the coefficient route); statuses "
+        f"equal but the truncated JPEGs (0 here, pixel route "
+        f"{numbers['truncated_pixel_status']}); fc7 cosine min "
+        f"{numbers['cos_min']:.6f} (> {DECODE_COS}) [{card}]")
+    return numbers
+
+
+def face_training_set(cfg):
+    """Detector training crops from the procedural faces
+    (scripts/train_face_template.py ``synth_training_set``, on the port's
+    ``face_synth``): 7 jittered head crops of each identity, hard
+    negatives, and 12 crops of each face-free scene."""
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models.face_detector import WINDOW
+    from columbiaimagesearch_tpu_torch.models.face_synth import (
+        make_scene,
+        render_face,
+        render_hard_negative,
+    )
+
+    def win(a):
+        return np.asarray(Image.fromarray(a).resize(
+            (WINDOW, WINDOW), Image.BILINEAR), dtype=np.float32)
+
+    rng = np.random.RandomState(cfg["seed"])
+    pos, neg = [], []
+    for ident in range(cfg["identities"]):
+        img, (l, t, r, b) = render_face(ident)
+        H, W = img.shape
+        for dx, dy, grow in ((0, 0, 0), (-8, 0, 0), (8, 0, 0), (0, -8, 8),
+                             (0, 8, -8), (0, 0, 14), (0, 0, -10)):
+            x0, y0 = l + dx - grow, t + dy - grow
+            x1, y1 = r + dx + grow, b + dy + grow
+            pos.append(win(img[max(y0, 0):min(y1, H),
+                               max(x0, 0):min(x1, W)]))
+    for k in range(cfg["hard"]):
+        neg.append(win(render_hard_negative(k % 6, k // 6)))
+    for seed in range(cfg["neg_scenes"]):
+        scene, _ = make_scene(900000 + seed, [], n_faces=0, n_distractors=5)
+        for _ in range(12):
+            s = rng.randint(70, 220)
+            y0 = rng.randint(0, scene.shape[0] - s)
+            x0 = rng.randint(0, scene.shape[1] - s)
+            neg.append(win(scene[y0:y0 + s, x0:x0 + s]))
+    return pos, neg
+
+
+def phase_face_train(dev, card, cfg=None):
+    """Face training on the card (see FACE_TRAIN): the detector template
+    against the same training on the CPU and on held-out scenes, and the
+    68-point landmark net against JAX's held-out bound."""
+    from columbiaimagesearch_tpu_torch.models.face_align import (
+        _params_to,
+        init_landmark_params,
+        make_landmark_training_set,
+        predict_landmarks,
+        train_landmark_net,
+    )
+    from columbiaimagesearch_tpu_torch.models.face_detector import (
+        ConvHOGFaceDetector,
+    )
+    from columbiaimagesearch_tpu_torch.models.face_synth import make_scene
+
+    cfg = dict(FACE_TRAIN, **(cfg or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    pos, neg = face_training_set(cfg)
+    set_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det = ConvHOGFaceDetector(device=dev, threshold=0.0).train(
+        pos, neg, steps=cfg["steps"])
+    sync()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = ConvHOGFaceDetector(device="cpu", threshold=0.0).train(
+        pos, neg, steps=cfg["steps"])
+    cpu_s = time.perf_counter() - t0
+    got = det.template.cpu().numpy()
+    want = cpu.template.numpy()
+    np.testing.assert_allclose(got, want, rtol=FACE_TRAIN_RTOL,
+                               atol=FACE_TRAIN_ATOL)
+    t_err = float(np.abs(got - want).max())
+
+    def iou(a, b):
+        ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
+        iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
+        i = ix * iy
+        return i / ((a[2] - a[0]) * (a[3] - a[1])
+                    + (b[2] - b[0]) * (b[3] - b[1]) - i)
+
+    found = total = 0
+    for k in range(cfg["heldout_scenes"]):
+        img, gt = make_scene(700 + k, range(300, 340))
+        boxes = [(d["left"], d["top"], d["right"], d["bottom"])
+                 for d in det.detect_from_img(img)]
+        total += len(gt)
+        found += sum(any(iou(g, b) >= 0.4 for b in boxes) for g in gt)
+    if found != total:
+        raise AssertionError(f"face_train: the card's template found "
+                             f"{found} of {total} held-out faces")
+    log(f"face_train: detector template from {len(pos)} positive and "
+        f"{len(neg)} negative face_synth crops (made in {set_s:.2f}s), "
+        f"{cfg['steps']} steps: card {card_s:.2f}s, CPU {cpu_s:.2f}s, "
+        f"templates within {t_err:.2e} (rtol {FACE_TRAIN_RTOL}, atol "
+        f"{FACE_TRAIN_ATOL}), bias {det.bias:.5f} vs {cpu.bias:.5f}; "
+        f"{found} of {total} faces of {cfg['heldout_scenes']} held-out "
+        f"scenes found (IoU >= 0.4) [{card}]")
+
+    crops, targets = make_landmark_training_set(range(cfg["lm_ids"]),
+                                                n_per_identity=3, seed=0)
+    t0 = time.perf_counter()
+    params, loss = train_landmark_net(init_landmark_params(0, n_points=68),
+                                      crops, targets, steps=cfg["lm_steps"],
+                                      device=dev)
+    sync()
+    lm_s = time.perf_counter() - t0
+    ho_crops, ho_targets = make_landmark_training_set(
+        range(200, 212), n_per_identity=2, seed=1)
+    pred = predict_landmarks(_params_to(params, dev),
+                             torch.from_numpy(ho_crops).to(dev),
+                             n_points=68).cpu().numpy()
+    err = float(np.abs(pred - ho_targets).mean())
+    if not (loss < LANDMARK_LOSS and err < LANDMARK_ERR):
+        raise AssertionError(f"face_train: landmark loss {loss}, held-out "
+                             f"error {err}")
+    log(f"face_train: 68-point landmark net, {cfg['lm_steps']} Adam steps "
+        f"on {len(crops)} crops in {lm_s:.2f}s: loss {loss:.5f} (< "
+        f"{LANDMARK_LOSS}), held-out error {err:.4f} (< {LANDMARK_ERR}) "
+        f"[{card}]")
+    return dict(detector=dict(pos=len(pos), neg=len(neg), card_s=card_s,
+                              cpu_s=cpu_s, template_max_abs=t_err,
+                              found=found, faces=total),
+                landmarks=dict(crops=len(crops), steps=cfg["lm_steps"],
+                               s=lm_s, loss=loss, heldout_err=err))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3774,6 +4502,9 @@ def main():
     state, launches = phase_main_path(dev, cfg, card, trained)
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
+    wide, wide_launches = phase_wide(dev, cfg, state, card)
+    torch.cuda.empty_cache()
+    model_io = phase_model_io(dev, card, trained, state)
     recall = phase_recall(dev, cfg, state, card, trained)
     phase_query_parity(dev, cfg, state)
     phase_numbers(dev, cfg, state, card)
@@ -3784,6 +4515,8 @@ def main():
     del state
     torch.cuda.empty_cache()
     phase_fc7(dev, card)
+    decode = phase_decode(dev, card)
+    torch.cuda.empty_cache()
     serving = phase_serving(dev, card, trained)
     torch.cuda.empty_cache()
     codestore = phase_codestore(dev, card, trained)
@@ -3796,10 +4529,12 @@ def main():
     phase_face_models(dev, card)
     face_serving = phase_face_serving(dev, card, index)
     del index
+    face_train = phase_face_train(dev, card)
     http, http_launches = serving["sharded_http"]
     sharded["http"] = http
     sharded_launches += http_launches
     log(f"launches: lut_build {launches} on the probed path + "
+        f"{wide_launches} on the wide-V path + "
         f"{sharded_launches} on the sharded path + "
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
@@ -3819,11 +4554,15 @@ def main():
         power_limit=power.strip())}))
     log(json.dumps({"sharded": dict(sharded, card=name.strip(),
                                     power_limit=power.strip())}))
+    for key, numbers in (("wide", wide), ("model_io", model_io),
+                         ("decode", decode), ("face_train", face_train)):
+        log(json.dumps({key: dict(numbers, card=name.strip(),
+                                  power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
-        "launches": launches + sharded_launches
+        "launches": launches + wide_launches + sharded_launches
         + serving["launches"]["lut"] + ex["lut_launches"] + face_launches
         + face_serving["launches"],
         "max_abs_err": worst,

@@ -12,6 +12,10 @@ embeddings -> the probed query), trains LOPQ models on the card
 (k-means, PCA, local rotations), and ingests: image directories or bus
 messages -> updates -> features extracted on the card -> the KV store
 (``pipeline/``), with the codes persisted in the native code store.
+JPEGs are decoded on the card: the host only entropy-decodes them to DCT
+coefficients with the port's own reader (``native/csrc/jpegcoef.cpp``,
+no libjpeg), and the device reconstructs and resizes them
+(``models/jpeg_device.py``).
 It serves on several cards too: the row-sharded index over a device mesh
 (``parallel/``), one process launching every shard's query on its own
 card. It imports ``torch`` and numpy only (PIL and ``requests`` lazily), never
@@ -26,10 +30,12 @@ Layout (JAX counterpart in brackets):
 - ``ops/kmeans.py``, ``ops/pca.py``, ``ops/rotations.py``,
   ``ops/eigen_alloc.py`` [the same names]: training.
 - ``index/model.py`` [index/model.py]: ``train``, ``LOPQModel`` and
-  ``LOPQModelPCA`` (parameter containers, ``fit`` classmethods, npz I/O).
+  ``LOPQModelPCA`` (parameter containers, ``fit`` classmethods, npz, .mat
+  and proto I/O); ``index/proto.py``, ``index/protos/`` [the same names].
 - ``index/eval.py`` [index/eval.py]: recall, distortion, cell balance.
 - ``index/encode.py`` [index/tpu_encode.py]: ``lopq_encode``.
-- ``index/csr.py`` [index/csr.py]: CSR build and in-place appends.
+- ``index/csr.py`` [index/csr.py]: CSR build and in-place appends (the
+  dense offsets table, or in wide-V mode the sorted cell ids only).
 - ``index/lut.py`` [index/tpu_query.py ``build_luts_pallas``]: the LUT
   kernel's wrapper and its plain PyTorch version.
 - ``index/query.py`` [index/tpu_query.py]: ``lopq_query`` and friends.
@@ -43,11 +49,15 @@ Layout (JAX counterpart in brackets):
 - ``index/exhaustive_adc.py`` [index/pallas_adc.py]: the scan kernel's
   wrapper and plain version, ``ExhaustiveADC``, ``ExhaustiveADCSearcher``.
 - ``kernels/build.py`` [native/build.py]: nvcc build + ctypes loading.
-- ``models/`` [models/layers.py, preprocess.py, sentibank.py]: the fc7
-  featurizer; [models/face.py, face_detector.py, face_dlib.py,
-  face_align.py, face_synth.py]: the face embedders, detector, aligner
-  and scene renderer (inference only); ``native/`` [native/build.py,
-  imgpipe.py, codestore.py]: the host image decoder and the code store;
+- ``models/`` [models/layers.py, preprocess.py, sentibank.py,
+  jpeg_device.py]: the fc7 featurizer and the device JPEG decode;
+  [models/face.py, face_detector.py, face_dlib.py, face_align.py,
+  face_synth.py]: the face embedders, detector, aligner (the detector
+  template and the landmark net train on the card) and scene renderer;
+  ``utils/synthimg.py`` [the same name]: procedural images;
+  ``native/`` [native/build.py, imgpipe.py, codestore.py]: the host
+  image decoder, the JPEG coefficient reader (``native/csrc/``) and the
+  code store;
   ``imgio/``, ``extraction/``, ``store/``, ``common/``, ``searcher/``,
   ``api/`` [the same names]: the serving stack; ``pipeline/`` [pipeline/,
   and scripts/run_processing.py, run_images_pusher.py, bus_printer.py as

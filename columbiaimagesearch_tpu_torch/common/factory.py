@@ -98,8 +98,8 @@ def build_searcher(conf, prefix="SEARCHLOPQ_", indexer=None, storer=None,
         # — makes `reranking: true` (the reference release config) run on
         # the device instead of detouring through the indexer.
         store_rerank_feats=bool(r.get_param("store_rerank_feats", False)),
-        # "auto" (default) and "float32" serve an exact float32 store;
-        # the bfloat16 store is not ported yet.
+        # "auto" (default) plans float32 or bfloat16 from the rows and the
+        # card's memory; "float32" and "bfloat16" force a dtype.
         rerank_dtype=r.get_param("rerank_dtype", "auto"),
         # Expected index size (rows): pre-sizes device buffers so
         # production refreshes append in place.

@@ -6,12 +6,10 @@ Same column conventions as the reference
 extraction string ``<featurizer>_feat_<detector>_<input>``, per-bbox feature
 columns ``<col>:<extr>_<left>_<top>_<right>_<bottom>_<score>`` and the
 ``_processed`` / ``_failed`` markers; ``process_batch`` decodes on the
-host and runs one batched device forward for all images, or with a face
-detector one detection per image and one embedder forward for all chips.
-
-Difference from the JAX module: ``get_featurizer`` defaults to
-``device_decode=False``, because the device JPEG decode is not ported
-(ROADMAP.md, still to port #10).
+host (or, on the default device-decode route, entropy-decodes JPEGs on
+the host and reconstructs them on the device) and runs one batched device
+forward for all images, or with a face detector one detection per image
+and one embedder forward for all chips.
 """
 
 from columbiaimagesearch_tpu_torch.extraction.detector import (
@@ -42,12 +40,16 @@ def build_extr_str_failed(featurizer_type, detector_type, input_type):
         + "_" + EXTR_STR_FAILED
 
 
-def get_featurizer(featurizer_type, params=None, device_decode=False,
+def get_featurizer(featurizer_type, params=None, device_decode=True,
                    device=None):
     """Factory (reference: featurizer/generic_featurizer.py:5-41).
-    ``device_decode=True`` raises for Sentibank: see the module docstring.
-    ``device``: where the featurizer runs (default: the first card; raises
-    without one)."""
+
+    ``device_decode=True`` (default, as in the JAX package,
+    extractor.py:41-48): the production route — the host only
+    entropy-decodes the JPEGs and the device reconstructs them
+    (models/jpeg_device.py); other images take the host pixel route. It
+    raises when the coefficient reader does not build. ``device``: where
+    the featurizer runs (default: the first card; raises without one)."""
     if featurizer_type in ("sbpycaffe", "sentibank"):
         from columbiaimagesearch_tpu_torch.models.sentibank import (
             SentibankFeaturizer,

@@ -2,9 +2,10 @@
 (port of columbiaimagesearch_tpu/index/csr.py:22-81, 159-173).
 
 Codes sorted by cell id (stable argsort, so rows of one cell keep their
-insertion order) plus a ``[V^2 + 1]`` int32 offsets table; unoccupied
-capacity rows carry the sentinel cell ``V*V``, which sorts after every real
-cell and is left out of the offsets. ``merge_append_csr`` (used by the JAX
+insertion order) plus a ``[V^2 + 1]`` int32 offsets table, or in wide-V
+mode only the sorted cell ids (the table would take 268 MB at V=8192);
+unoccupied capacity rows carry the sentinel cell ``V*V``, which sorts after
+every real cell and is left out of the offsets. ``merge_append_csr`` (used by the JAX
 searcher only above 32M rows of capacity, where XLA's sort was slow) is
 not ported: ``torch.sort`` refreshes 8,192 rows at 41,943,040 rows of
 capacity in milliseconds on the H100 (ROADMAP.md, "Do not port").
@@ -44,9 +45,11 @@ def build_csr(coarse, fine, V: int):
 
 
 def append_and_build_csr(dev_cells, dev_fine, new_cells, new_fine, offset,
-                         V: int):
+                         V: int, wide: bool = False):
     """Write a chunk into the capacity buffers at ``offset`` and rebuild
-    the cell-sorted view.
+    the cell-sorted view (csr.py:47-81). With ``wide`` (wide-V mode) no
+    dense offsets table is built, ``cell_start`` is None, and queries
+    look buckets up in ``cells_sorted`` (``torch.searchsorted``).
 
     :param dev_cells: [cap] int32 cell ids, sentinel V*V on unoccupied
         rows (written in place)
@@ -55,8 +58,8 @@ def append_and_build_csr(dev_cells, dev_fine, new_cells, new_fine, offset,
     :param new_fine: [k, M] uint8 chunk
     :param offset: number of occupied rows before the append
     :returns: (cells_sorted [cap] int32, codes_sorted [cap, M] uint8,
-        cell_start [V^2+1] int32, order [cap] int32 — insertion index of
-        each sorted row)
+        cell_start [V^2+1] int32 or None (``wide``), order [cap] int32 —
+        insertion index of each sorted row)
     """
     k = new_cells.shape[0]
     if offset + k > dev_cells.shape[0]:
@@ -67,7 +70,8 @@ def append_and_build_csr(dev_cells, dev_fine, new_cells, new_fine, offset,
     dev_fine[offset:offset + k] = new_fine
     cells_sorted, order = torch.sort(dev_cells, stable=True)
     codes = dev_fine[order]
-    return cells_sorted, codes, _offsets(dev_cells, V), order.to(torch.int32)
+    cell_start = None if wide else _offsets(dev_cells, V)
+    return cells_sorted, codes, cell_start, order.to(torch.int32)
 
 
 def append_rows(buf, chunk, offset):

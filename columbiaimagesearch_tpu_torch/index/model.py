@@ -31,7 +31,10 @@ train the instance in place. The single-vector API of the JAX model
 (``predict``, ``predict_coarse``/``predict_fine``, ``project``,
 ``reconstruct``, ``get_subquantizer_distances``, the cell-id helpers;
 model.py:565-716) takes numpy and returns numpy, computed on the model's
-device. ``.mat``/proto I/O is not ported yet (ROADMAP.md).
+device. ``export_mat``/``load_mat`` (scipy) and ``export_proto``/
+``load_proto`` (protobuf, index/proto.py) read and write the reference's
+formats (model.py:346-400); each raises ``ImportError`` naming its package
+when it is missing, and the loaders take an explicit ``device``.
 """
 
 from collections import namedtuple
@@ -387,8 +390,69 @@ class LOPQModel:
         with np.load(filename) as d:
             return cls._from_fields(d, device=device)
 
+    def export_mat(self, filename):
+        """The LOPQ tables as a MATLAB .mat file, in the reference's layout
+        (lopq/lopq/model.py:712-728; JAX model.py:346-357): ``Cs``,
+        ``Rs``, ``mus``, ``subs`` stacked, plus ``V`` and ``M``. A PCA
+        model writes its LOPQ tables only, as the JAX package does.
+
+        :raises ImportError: scipy is not installed
+        """
+        savemat = _scipy_io().savemat
+        f = self._npz_fields()
+        savemat(filename, {k: f[k] for k in ("Cs", "Rs", "mus", "subs", "V",
+                                              "M")})
+
+    @staticmethod
+    def load_mat(filename, *, device):
+        """An ``LOPQModel`` on ``device`` from a .mat file of either
+        package's ``export_mat`` (JAX model.py:359-370)."""
+        d = _scipy_io().loadmat(filename)
+        M = int(d["M"][0][0])
+        V = int(d["V"][0][0])
+        Cs = np.asarray(d["Cs"])
+        Dh = Cs.shape[-1]
+        subs = np.asarray(d["subs"])
+        return LOPQModel(Cs.reshape(2, V, Dh),
+                         np.asarray(d["Rs"]).reshape(2, V, Dh, Dh),
+                         np.asarray(d["mus"]).reshape(2, V, Dh),
+                         subs.reshape((2, M // 2) + subs.shape[-2:]),
+                         device=device)
+
+    def export_proto(self, f):
+        """The LOPQ tables in the reference's protobuf wire format, to a
+        path or a binary file object (index/proto.py; JAX
+        model.py:389-394).
+
+        :raises ImportError: protobuf is not installed
+        """
+        from columbiaimagesearch_tpu_torch.index import proto
+
+        proto.export_proto(self, f)
+
+    @staticmethod
+    def load_proto(filename, *, device):
+        """An ``LOPQModel`` on ``device`` from a proto file of either
+        package (JAX model.py:396-400).
+
+        :raises ImportError: protobuf is not installed
+        """
+        from columbiaimagesearch_tpu_torch.index import proto
+
+        return proto.load_proto(filename, device=device)
+
     def __reduce__(self):
         return _unpickle_model, (type(self), self._npz_fields())
+
+
+def _scipy_io():
+    try:
+        import scipy.io
+    except ImportError as e:
+        raise ImportError(
+            "LOPQ .mat I/O needs the scipy package (scipy.io), which is not "
+            f"installed: {e}") from e
+    return scipy.io
 
 
 class LOPQModelPCA(LOPQModel):

@@ -28,8 +28,13 @@ The serving fast path takes raw features: :func:`fused_feat_query` and
 wave on the device, every norm guarded by ``max(norm, 1e-30)`` so the
 zero rows of a padded wave stay finite, then run the functions above.
 
-Not ported yet (it raises ``NotImplementedError``): wide-V mode
-(``cell_start=None``).
+Wide-V mode (tpu_query.py:257-270, 332-336, 392-396, 511-513): with
+``cell_start=None`` there is no dense ``[V^2 + 1]`` offsets table, and a
+probed cell's bucket is the ``torch.searchsorted`` range of its id in the
+cell-sorted ``cells_sorted`` (left for its start, right for its end). The
+sentinel ``V*V`` of the capacity-padded tail sorts after every real cell
+and never matches one. Only the source of the bucket bounds differs, so
+both modes return the same rows and distances.
 """
 
 import numpy as np
@@ -97,7 +102,27 @@ def _half_dists(x_s, C_s, R_s, mu_s, sub_s, isel, slot, cc):
     return acc
 
 
-def _wide_square_slots(td0, td1, isel0, isel1, cell_start, quota, V, Q):
+def _bucket_bounds(cell_start, cells_sorted, cells):
+    """(start, count) int64 of each cell id in ``cells``: from the dense
+    offsets table, or in wide-V mode (``cell_start`` None) from the
+    searchsorted range over ``cells_sorted``."""
+    if cell_start is not None:
+        start = cell_start[cells].long()
+        return start, cell_start[cells + 1].long() - start
+    c = cells.to(cells_sorted.dtype)
+    start = torch.searchsorted(cells_sorted, c, right=False)
+    return start, torch.searchsorted(cells_sorted, c, right=True) - start
+
+
+def _bucket_start(cell_start, cells_sorted, cells):
+    if cell_start is not None:
+        return cell_start[cells].long()
+    return torch.searchsorted(cells_sorted, cells.to(cells_sorted.dtype),
+                              right=False)
+
+
+def _wide_square_slots(td0, td1, isel0, isel1, cell_start, quota, V, Q,
+                       cells_sorted=None):
     """Candidate slots of a B x B square too wide to sort per query, the
     sort-free quota prefix of tpu_query.py:372-518.
 
@@ -125,7 +150,7 @@ def _wide_square_slots(td0, td1, isel0, isel1, cell_start, quota, V, Q):
     dev = td0.device
     grid = td0[:, :, None] + td1[:, None, :]             # [NQ, B, B], rows up
     cells = isel0[:, :, None] * V + isel1[:, None, :]
-    cnt = (cell_start[cells + 1] - cell_start[cells]).long()
+    cnt = _bucket_bounds(cell_start, cells_sorted, cells)[1]
     del cells
     # Candidates up to and including each cell of a row, plus the rows
     # before it: one globally ascending table (int64), [NQ, B * B].
@@ -177,29 +202,29 @@ def _wide_square_slots(td0, td1, isel0, isel1, cell_start, quota, V, Q):
         b_j > 0, Pg.gather(1, a_j * B + (b_j - 1).clamp(min=0))
         - rowbase.gather(1, a_j), 0)
     cid = isel0.gather(1, a_j) * V + isel1.gather(1, b_j)
-    rows = cell_start[cid].long() + (base_off - before)
+    rows = _bucket_start(cell_start, cells_sorted, cid) + (base_off - before)
     return rows, a_j, b_j, total, n_cells, d_stop[:, 0]
 
 
 def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
-               K, SB=0):
+               K, SB=0, cells_sorted=None):
     """Probed ADC top-K for a wave of queries.
 
     :param X: [NQ, D] float32 queries
     :param Cs/Rs/mus/subs: model tables (see index/model.py)
     :param codes: [N, M] uint8 PQ codes, rows sorted by cell id
-    :param cell_start: [V^2 + 1] int32 CSR offsets
+    :param cell_start: [V^2 + 1] int32 CSR offsets, or None in wide-V mode
     :param quota: stop probing cells once this many candidates are covered
+    :param cells_sorted: [N] int32 cell id of each sorted row (sentinel
+        ``V*V`` on capacity pads); read only in wide-V mode
     :param B: probed clusters per split; Q: candidate budget; K: results
     :param SB: edge-strip depth (0 = square-only grid)
     :returns: (rows [NQ, K] int64 sorted-row indices, -1 when invalid;
         dists [NQ, K] float32, +inf when invalid; total [NQ];
         n_cells [NQ]; grid_ok [NQ] bool)
     """
-    if cell_start is None:
-        raise NotImplementedError(
-            "wide-V mode (cell_start=None) is not ported yet "
-            "(ROADMAP.md, still to port #2)")
+    if cell_start is None and cells_sorted is None:
+        raise ValueError("wide-V mode (cell_start=None) needs cells_sorted")
     NQ = X.shape[0]
     F, S, Dsub = subs.shape[1], subs.shape[2], subs.shape[3]
     Dh = Cs.shape[2]
@@ -249,15 +274,13 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
             gsorted, perm = torch.sort(grid, dim=1, stable=True)
             a_idx, b_idx = perm // B, perm % B      # slots into isel0/isel1
             cells = isel0.gather(1, a_idx) * V + isel1.gather(1, b_idx)
-            starts = cell_start[cells].long()
-            counts = cell_start[cells + 1].long() - starts
+            starts, counts = _bucket_bounds(cell_start, cells_sorted, cells)
         else:
             rg, cg = _strip_region(B, SB, SL, dev)
             G = rg.shape[0]
             gridf = td0f[:, rg] + td1f[:, cg]                 # [NQ, G]
             cidf = i0f[:, rg] * V + i1f[:, cg]
-            startsf = cell_start[cidf].long()
-            cntf = cell_start[cidf + 1].long() - startsf
+            startsf, cntf = _bucket_bounds(cell_start, cells_sorted, cidf)
             # Stable sort of the key plus payload gathers == the stable
             # multi-payload lax.sort of tpu_query.py:356.
             gsorted, perm = torch.sort(gridf, dim=1, stable=True)
@@ -285,7 +308,7 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
         slot1 = b_idx.gather(1, b_for_j)
     else:
         rows, slot0, slot1, total, n_cells, d_stop = _wide_square_slots(
-            td0, td1, isel0, isel1, cell_start, quota, V, Q)
+            td0, td1, isel0, isel1, cell_start, quota, V, Q, cells_sorted)
     grid_ok = d_stop <= out_grid_min
     valid = j < total.clamp(max=Q)[:, None]
     rows = torch.where(valid, rows, 0)
@@ -320,17 +343,18 @@ def _to_insertion_rows(rows, order):
 
 
 def lopq_query_orig(X, Cs, Rs, mus, subs, codes, cell_start, order, quota,
-                    *, V, B, Q, K, SB=0):
+                    *, V, B, Q, K, SB=0, cells_sorted=None):
     """:func:`lopq_query` with rows mapped back to insertion order through
     the CSR ``order`` permutation."""
     rows, dists, total, n_cells, grid_ok = lopq_query(
         X, Cs, Rs, mus, subs, codes, cell_start, quota, V=V, B=B, Q=Q, K=K,
-        SB=SB)
+        SB=SB, cells_sorted=cells_sorted)
     return _to_insertion_rows(rows, order), dists, total, n_cells, grid_ok
 
 
 def lopq_query_rerank(X, feats, Cs, Rs, mus, subs, codes, cell_start, order,
-                      quota, *, V, B, Q, K, R, K_out=0, SB=0):
+                      quota, *, V, B, Q, K, R, K_out=0, SB=0,
+                      cells_sorted=None):
     """Probed ADC query plus exact rerank over the resident feature store:
     the top ``R`` ADC candidates are re-scored by true L2 distance (not
     squared, like the reference's ``np.linalg.norm``) and re-sorted
@@ -343,7 +367,7 @@ def lopq_query_rerank(X, feats, Cs, Rs, mus, subs, codes, cell_start, order,
     """
     rows, _, total, n_cells, grid_ok = lopq_query_orig(
         X, Cs, Rs, mus, subs, codes, cell_start, order, quota, V=V, B=B, Q=Q,
-        K=K, SB=SB)
+        K=K, SB=SB, cells_sorted=cells_sorted)
     rR = rows[:, :R]
     cand = feats[rR.clamp(min=0)].to(torch.float32)           # [NQ, R, D]
     diff = cand - X.to(torch.float32)[:, None, :]
@@ -426,7 +450,7 @@ def normalize_project(X, pca_P=None, pca_mu=None, renorm=False):
 
 def fused_feat_query(X, pca_P, pca_mu, Cs, Rs, mus, subs, codes, cell_start,
                      order, quota, feats=None, *, V, B, Q, K, R=0, K_out=0,
-                     renorm=False, SB=0):
+                     renorm=False, SB=0, cells_sorted=None):
     """Raw features -> packed results of one rung (tpu_query.py:1005-1055):
     :func:`normalize_project`, then :func:`lopq_query_rerank` (``R > 0``,
     over ``feats``) or :func:`lopq_query_orig`, then
@@ -438,9 +462,11 @@ def fused_feat_query(X, pca_P, pca_mu, Cs, Rs, mus, subs, codes, cell_start,
     tables = (Cs, Rs, mus, subs, codes, cell_start, order)
     if R > 0:
         out = lopq_query_rerank(Xn, feats, *tables, quota, V=V, B=B, Q=Q,
-                                K=K, R=R, K_out=K_out, SB=SB)
+                                K=K, R=R, K_out=K_out, SB=SB,
+                                cells_sorted=cells_sorted)
     else:
-        out = lopq_query_orig(Xn, *tables, quota, V=V, B=B, Q=Q, K=K, SB=SB)
+        out = lopq_query_orig(Xn, *tables, quota, V=V, B=B, Q=Q, K=K, SB=SB,
+                              cells_sorted=cells_sorted)
     return pack_query_out(*out)
 
 

@@ -44,8 +44,9 @@ run in the coalescer's and the HTTP handlers' threads); the device buffers
 are built outside it, so later in-place appends stay legal.
 
 ``codestore_path`` persists the codes in the native store
-(searcher.py:405-416, 486-492). Wide-V mode (V >= 8192) is not ported yet
-(ROADMAP.md).
+(searcher.py:405-416, 486-492). At V >= ``WIDE_V_THRESHOLD`` (8192) the
+searcher keeps no dense offsets table (wide-V mode): queries look buckets
+up in the sorted cell ids (index/query.py).
 
 The host reference path is ported too: ``LOPQSearcherBase`` (the
 multisequence walk, per-cluster LUT memoization, ADC ranking;
@@ -272,8 +273,9 @@ class LOPQSearcherTorch(LOPQSearcherBase):
 
     #: appended chunks are sentinel-padded to this multiple
     CHUNK_QUANTUM = 8192
-    #: at/above this V the JAX searcher switches to wide-V mode (no dense
-    #: offsets table), which the port does not have yet
+    #: at/above this V the dense [V^2+1] offsets table (268 MB at V=8192,
+    #: 1 GB at V=16384) gives way to searchsorted lookups over the sorted
+    #: cell ids (wide-V mode, searcher.py:518-523)
     WIDE_V_THRESHOLD = 8192
     #: every REPROBE_EVERY-th wave restarts the ladder from its floor so
     #: the tier hint can shift back down
@@ -494,11 +496,13 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         if not self._dirty:
             return
         V = self.model.V
-        if V >= self.WIDE_V_THRESHOLD:
-            raise NotImplementedError(
-                f"V={V}: wide-V mode (V >= {self.WIDE_V_THRESHOLD}, no "
-                "dense offsets table) is not ported yet (ROADMAP.md, still "
-                "to port #2)")
+        if V > 46340:
+            # Cell ids c0*V + c1 live in int32 buffers (and V*V is the
+            # empty-slot sentinel); past floor(sqrt(2^31-1)) they would
+            # wrap (searcher.py:530-537).
+            raise ValueError(
+                f"V={V} too large: cell ids c0*V+c1 must fit int32 "
+                "(V <= 46340)")
         feats_new = self._take_pending() if self._pending else None
         n = self._n_host
         self.nb_indexed = n
@@ -537,9 +541,9 @@ class LOPQSearcherTorch(LOPQSearcherBase):
             chunk_c[:n - n_old] = torch.from_numpy(
                 self._cells[n_old:n].astype(np.int32))
             chunk_f[:n - n_old] = torch.from_numpy(self._fine[n_old:n])
-        _cells_sorted, codes, cell_start, order = append_and_build_csr(
+        cells_sorted, codes, cell_start, order = append_and_build_csr(
             self._buf_cells, self._buf_fine, chunk_c.to(dev),
-            chunk_f.to(dev), offset, V)
+            chunk_f.to(dev), offset, V, wide=V >= self.WIDE_V_THRESHOLD)
         if self._feats_ok:
             old = self._buf_feats
             Dr = (feats_new if feats_new is not None else old).shape[1]
@@ -559,13 +563,22 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         self._n_dev = n
         # Atomic swap: in-flight queries keep their consistent dict.
         d = dict(self._dev)
+        d["cells_sorted"] = cells_sorted
         d["codes"] = codes
         d["cell_start"] = cell_start
         d["order"] = order
         if self._feats_ok:
             d["feats"] = self._buf_feats
             d["feats_sq"] = _row_norms_sq(self._buf_feats)
-            d["n_occ"] = int((cell_start[1:] > cell_start[:-1]).sum())
+            if cell_start is not None:
+                d["n_occ"] = int((cell_start[1:] > cell_start[:-1]).sum())
+            else:
+                # Distinct real cells of the sorted ids (searcher.py:
+                # 721-729): the sentinel tail is not a cell.
+                cs = cells_sorted
+                real = cs < sentinel
+                d["n_occ"] = int(((cs[1:] != cs[:-1]) & real[1:]).sum()
+                                 + real[0])
         else:
             d["feats"] = d["feats_sq"] = d["n_occ"] = None
         self._dev = d
@@ -829,13 +842,14 @@ class LOPQSearcherTorch(LOPQSearcherBase):
                     np.asarray(idx)).to(self.device)]
                 tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
                           d["cell_start"], d["order"])
+                cs = d["cells_sorted"] if d["cell_start"] is None else None
                 if R:
                     out = lopq_query_rerank(
                         Xi, d["feats"], *tables, quota, V=V, B=B, Q=Q,
-                        K=K_stage, R=R, K_out=K_emit, SB=SB)
+                        K=K_stage, R=R, K_out=K_emit, SB=SB, cells_sorted=cs)
                 else:
                     out = lopq_query_orig(Xi, *tables, quota, V=V, B=B, Q=Q,
-                                          K=K_stage, SB=SB)
+                                          K=K_stage, SB=SB, cells_sorted=cs)
                 packed = pack_query_out(*out).cpu().numpy()  # one copy
                 return unpack_query_out(packed, K_emit)
 
@@ -859,7 +873,8 @@ class LOPQSearcherTorch(LOPQSearcherBase):
                 Xi, pca_P, pca_mu, d["Cs"], d["Rs"], d["mus"], d["subs"],
                 d["codes"], d["cell_start"], d["order"], quota, d["feats"],
                 V=V, B=B, Q=Q, K=K_stage, R=R, K_out=K_emit, renorm=renorm,
-                SB=SB).cpu().numpy()                      # one copy
+                SB=SB, cells_sorted=(d["cells_sorted"] if d["cell_start"]
+                                     is None else None)).cpu().numpy()
             return unpack_query_out(packed, K_emit)
         return run_tier
 

@@ -1,6 +1,6 @@
-"""Face alignment in PyTorch, inference only: landmark regression and the
+"""Face alignment in PyTorch: landmark regression, its training, and the
 similarity-warped chip (port of columbiaimagesearch_tpu/models/face_align.py:
-30-72, 112-136, 177-305).
+30-305).
 
 The reference aligns faces with dlib's 68-landmark shape predictor before
 embedding (reference: cufacesearch/featurizer/dlib_featurizer.py:68-105).
@@ -17,8 +17,9 @@ As in the JAX package:
 
 ``LandmarkNet``'s parameters keep the flax pytree (``Conv_0``..``Conv_3``,
 ``Dense_0``, ``Dense_1``, each ``kernel``/``bias`` in flax layouts), so the
-JAX package's parameters load unchanged. Training (``train_landmark_net``,
-``make_landmark_training_set``) is not ported.
+JAX package's parameters load unchanged. :func:`train_landmark_net` trains
+them on the device with Adam, on crops from
+:func:`make_landmark_training_set` (face_align.py:75-109, 139-174).
 """
 
 import functools
@@ -81,6 +82,87 @@ def _params_to(params, device):
     return {name: {k: torch.from_numpy(np.array(v, dtype=np.float32))
                    .to(device) for k, v in layer.items()}
             for name, layer in params.items()}
+
+
+def train_landmark_net(params, crops, points, steps=500, lr=1e-3,
+                       batch=64, seed=0, device=None):
+    """MSE landmark regression (face_align.py:75-109) on ``device``
+    (default: the first card; raises without one): ``steps`` Adam steps
+    (``torch.optim.Adam``, betas (0.9, 0.999), eps 1e-8: optax.adam's
+    defaults) on minibatches of ``batch`` rows drawn with replacement
+    from a ``torch.Generator`` seeded with ``seed`` (the JAX draw uses
+    ``jax.random``, so the batches differ).
+
+    :param params: the flax pytree :func:`init_landmark_params` returns
+        (numpy or tensors)
+    :param crops: [N, 64, 64, 1] float32 in [0, 1]
+    :param points: [N, n_points, 2] targets in [0, 1] crop coordinates
+        (the head size is taken from this shape)
+    :returns: (trained params as numpy in the same pytree, last loss)
+    """
+    dev = resolve_device(device)
+    crops = torch.as_tensor(np.asarray(crops, np.float32)).to(dev)
+    points = torch.as_tensor(np.asarray(points, np.float32)).to(dev)
+    n_points = int(points.shape[1])
+    p = {name: {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev)
+                .requires_grad_(True) for k, v in layer.items()}
+         for name, layer in params.items()}
+    leaves = [t for layer in p.values() for t in layer.values()]
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    loss = None
+    with torch.enable_grad():
+        for _ in range(steps):
+            idx = torch.randint(0, crops.shape[0], (batch,), generator=g,
+                                device=dev)
+            pred = predict_landmarks(p, crops[idx], n_points=n_points)
+            loss = torch.mean((pred - points[idx]) ** 2)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+    out = {name: {k: v.detach().cpu().numpy() for k, v in layer.items()}
+           for name, layer in p.items()}
+    return out, float(loss.detach()) if loss is not None else None
+
+
+def make_landmark_training_set(identities, n_per_identity: int = 4,
+                               seed: int = 0, n_points: int = 68):
+    """Rendered 64x64 crops and exact landmark targets of the procedural
+    faces in detector-style jittered boxes (copy of face_align.py:139-174,
+    numpy + PIL). Returns (crops [N, 64, 64, 1] float32 0..1,
+    targets [N, n_points, 2] in [0, 1] crop coordinates)."""
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.models import face_synth
+
+    rng = np.random.RandomState(seed)
+    crops, targets = [], []
+    for identity in identities:
+        img, bbox = face_synth.render_face(identity)
+        pts = face_synth.landmarks68(identity)
+        if n_points == N_POINTS:
+            pts = key5_from_68(pts)
+        elif n_points != 68:
+            raise ValueError(f"n_points must be 5 or 68, got {n_points}")
+        l, t, r, b = bbox
+        w, h = r - l, b - t
+        for _ in range(n_per_identity):
+            jl = max(0, int(l + rng.uniform(-0.08, 0.08) * w))
+            jt = max(0, int(t + rng.uniform(-0.08, 0.08) * h))
+            jr = min(img.shape[1], int(r + rng.uniform(-0.08, 0.08) * w))
+            jb = min(img.shape[0], int(b + rng.uniform(-0.08, 0.08) * h))
+            crop = img[jt:jb, jl:jr]
+            crop64 = np.asarray(
+                Image.fromarray(crop.astype(np.uint8)).resize(
+                    (LM_INPUT, LM_INPUT), Image.BILINEAR), np.float32)
+            tgt = (pts - [jl, jt]) / [max(jr - jl, 1), max(jb - jt, 1)]
+            # Jaw points sit ON the face bbox; inward jitter pushes them
+            # just outside the crop, which a sigmoid head cannot reach.
+            tgt = np.clip(tgt, 0.001, 0.999)
+            crops.append(crop64[..., None] / 255.0)
+            targets.append(tgt.astype(np.float32))
+    return np.stack(crops), np.stack(targets)
 
 
 def key5_from_68(pts):

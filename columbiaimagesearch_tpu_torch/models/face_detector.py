@@ -1,6 +1,5 @@
 """Sliding-window face detector (conv-HOG + linear template) in PyTorch
-(port of columbiaimagesearch_tpu/models/face_detector.py:28-191, 248-267;
-inference only).
+(port of columbiaimagesearch_tpu/models/face_detector.py:28-267).
 
 The reference detects faces with dlib's HOG + linear-SVM detector over an
 image pyramid (reference: cufacesearch/detector/dlib_detector.py:10-35).
@@ -22,7 +21,7 @@ sees the zero pad, and windows that touch the pad are masked.
 
 The template loads from ``$FACE_TEMPLATE``, else from the port's own
 ``models/weights/face_template.npz`` (a copy of the JAX package's trained
-artifact). Training the template (``train``) is not ported.
+artifact); :meth:`ConvHOGFaceDetector.train` fits one on the device.
 """
 
 import os
@@ -127,11 +126,54 @@ class ConvHOGFaceDetector:
                 return z["template"], float(z["bias"])
         return None
 
-    def train(self, *args, **kwargs):
-        """Template training (face_detector.py:195-245) is not ported."""
-        raise NotImplementedError(
-            "detector template training is not ported yet (ROADMAP.md, "
-            "still to port #12); load a trained template ($FACE_TEMPLATE)")
+    def train(self, pos_imgs, neg_imgs, steps=300, lr=0.05, seed=0,
+              neg_weight=1.0):
+        """Fit the linear template on this detector's device
+        (face_detector.py:195-245): HOG features of 80x80 window crops
+        through :func:`hog_features`, then class-balanced logistic
+        regression with a ``1e-4 * ||w||^2`` penalty by ``steps`` steps of
+        full-batch gradient descent (autograd) from zero. Each class
+        weighs half of the mean whatever the pool sizes, and
+        ``neg_weight`` scales the negatives further: unbalanced, a
+        positive-heavy pool drags the bias up and flat windows score
+        above zero. ``seed`` is unused (the descent is deterministic), as
+        in the JAX method. Sets ``template`` and ``bias``; returns self."""
+        del seed
+        dev = self.device
+
+        def feats_of(stack):
+            out = []
+            for im in stack:
+                a = np.array(im, dtype=np.float32)
+                if a.ndim == 3:
+                    a = a.mean(axis=2)
+                out.append(hog_features(torch.from_numpy(a).to(dev))
+                           [:TCELLS, :TCELLS, :].reshape(-1))
+            return torch.stack(out)
+
+        Xp, Xn = feats_of(pos_imgs), feats_of(neg_imgs)
+        X = torch.cat([Xp, Xn])
+        y = torch.cat([torch.ones(len(Xp)), torch.zeros(len(Xn))]).to(dev)
+        sw = np.concatenate([
+            np.full(len(Xp), 0.5 / max(len(Xp), 1)),
+            np.full(len(Xn), 0.5 * neg_weight / max(len(Xn), 1)),
+        ]).astype(np.float32)
+        sw = torch.from_numpy(sw / sw.sum()).to(dev)
+        w = torch.zeros(X.shape[1], device=dev, requires_grad=True)
+        b = torch.zeros((), device=dev, requires_grad=True)
+        with torch.enable_grad():
+            for _ in range(steps):
+                logits = X @ w + b
+                loss = (sw * (torch.clamp(logits, min=0) - logits * y
+                              + torch.log1p(torch.exp(-logits.abs())))
+                        ).sum() + 1e-4 * (w * w).sum()
+                gw, gb = torch.autograd.grad(loss, (w, b))
+                with torch.no_grad():
+                    w -= lr * gw
+                    b -= lr * gb
+        self.template = w.detach().reshape(TCELLS, TCELLS, N_ORIENT)
+        self.bias = float(b.detach())
+        return self
 
     # ----------------------------------------------------------- detection
 

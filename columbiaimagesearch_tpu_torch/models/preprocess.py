@@ -12,6 +12,8 @@ crosses PCIe once as uint8.
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.device import resolve_device
+
 TARGET = 256
 CROP = 227
 # Central crop offset (reference lines 72-76): (256 - 227) // 2.
@@ -72,24 +74,29 @@ def _to_device(stack, mean, device):
             torch.as_tensor(mean, dtype=torch.float32).to(device))
 
 
-def preprocess_batch(imgs, mean, device="cpu"):
+def preprocess_batch(imgs, mean, device=None):
     """Host resize + device crop/swap/mean-sub.
 
     :param imgs: iterable of HxWx3 uint8 RGB arrays (any sizes)
+    :param device: default: the first card (raises without one; pass
+        ``"cpu"`` for the CPU)
     :returns: [N, 3, 227, 227] float32 tensor on ``device``
     """
+    device = resolve_device(device)
     stack = np.stack([resize_host(im) for im in imgs])
     return preprocess_device(*_to_device(stack, mean, device))
 
 
 def preprocess_buffers(buffers, mean, n_threads: int = 0,
-                       dct_scale: bool = True, device="cpu"):
+                       dct_scale: bool = True, device=None):
     """Encoded buffers -> net input through the native decode+resize
     pipeline (native/imgpipe.cpp; PIL per image where it is not built).
 
+    :param device: default: the first card (raises without one)
     :returns: ([N, 3, 227, 227] float32 tensor on ``device``, status [N]
         int32 — 0 = ok, nonzero rows are zero images)
     """
+    device = resolve_device(device)
     from columbiaimagesearch_tpu_torch.native.imgpipe import (
         decode_resize_batch,
     )

@@ -21,6 +21,7 @@ serves both packages.
 """
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -242,20 +243,38 @@ class SentibankFeaturizer:
         :param compute_dtype: "float32" or "bfloat16" (features are
             returned as float32 either way)
         :param dct_scale: DCT-scaled JPEG decode in the native pipeline
+        :param device_decode: the coefficient route: the host only
+            entropy-decodes the wave's dominant-size 4:2:0 JPEGs and the
+            device reconstructs them (``models/jpeg_device.py``); other
+            images take the pixel route
         :param device: torch device; default: the first card (raises
             when there is none: pass ``device="cpu"`` for the CPU)
+        :raises RuntimeError: ``device_decode`` and the coefficient reader
+            did not build (the JAX featurizer quietly takes the pixel
+            route instead)
         """
         if device_decode:
-            raise NotImplementedError(
-                "device JPEG decode is not ported yet (ROADMAP.md, still "
-                "to port #10); use device_decode=False")
+            from columbiaimagesearch_tpu_torch.native.imgpipe import (
+                coeffs_available,
+                coeffs_build_error,
+            )
+
+            if not coeffs_available():
+                raise RuntimeError(
+                    "device_decode needs the JPEG coefficient reader "
+                    "(native/csrc/jpegcoef.cpp), which did not build: "
+                    f"{coeffs_build_error()}")
         dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
         if compute_dtype not in dtypes:
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
                              "bfloat16")
         self.dct_scale = dct_scale
-        self.device_decode = False
+        self.device_decode = bool(device_decode)
         self.device = resolve_device(device)
+        self._coeff_decoder = None
+        #: images per route ("coeffs", "pixels") since construction
+        self.route_counts = {"coeffs": 0, "pixels": 0}
+        self._route_lock = threading.Lock()
         if params is None:
             params = load_default_weights()
         self.pretrained = params is not None
@@ -322,25 +341,144 @@ class SentibankFeaturizer:
 
     def featurize_wave(self, buffers):
         """Serving-wave featurize: buffers -> (feats [n, 4096] on the
-        device, n, status [n]). Host decode and resize, then one device
-        pass (preprocess + forward). The JAX featurizer pads the wave to a
+        device, n, status [n]). Host decode and resize (or the coefficient
+        read and the device reconstruction), then one device pass
+        (preprocess + forward). The JAX featurizer pads the wave to a
         bucket size for its compiled programs; nothing here compiles per
         shape, so the wave is not padded."""
         return self.run_wave(self.prepare_wave(buffers))
 
     def prepare_wave(self, buffers):
         """Host half of a wave (the decode-ahead thread or a server
-        handler thread): pixel decode. Returns an opaque prep for
-        :meth:`run_wave`."""
-        stack, status = self.decode_wave(buffers)
-        return ("pixels", (stack, list(status)))
+        handler thread): pixel decode, or with ``device_decode`` the
+        coefficient read. Returns a prep for :meth:`run_wave`: (kind, a
+        payload dict whose "status" [n] is every image's decode status)
+        (sentibank.py:342-353)."""
+        if not self.device_decode:
+            return self._pixel_prep(buffers)
+        return self._prepare_coeff_wave(buffers)
 
     def run_wave(self, prep):
         """Device half: prep -> (feats [n, 4096] on the device, n,
         status [n])."""
-        _kind, (stack, status) = prep
+        return self.featurize_preps([prep])
+
+    def featurize_preps(self, preps):
+        """Several preps (one a request, from the serving handlers) -> one
+        forward: (feats [n, 4096] on the device, n, status [n]) in the
+        order of the preps. Each prep's pixels are made first (the
+        coefficient route reconstructs them on the device)."""
+        stacks, status = [], []
+        for prep in preps:
+            stack, st = self.wave_pixels(prep)
+            stacks.append(stack)
+            status.extend(st)
+        if len(stacks) == 1:
+            stack = stacks[0]
+        elif all(isinstance(x, np.ndarray) for x in stacks):
+            stack = np.concatenate(stacks)
+        else:
+            stack = torch.cat([torch.as_tensor(x).to(self.device)
+                               for x in stacks])
         feats, n = self.featurize_pixel_wave(stack)
         return feats, n, status
+
+    def wave_pixels(self, prep):
+        """A prep's staging pixels: ([n, 256, 256, 3] uint8 — a host array
+        on the pixel route, a device tensor on the coefficient route, which
+        reconstructs them — and status [n])."""
+        kind, payload = prep
+        if kind == "pixels":
+            return payload["stack"], payload["status"]
+        return self._coeff_pixels(payload)
+
+    def _count(self, coeffs, pixels):
+        with self._route_lock:
+            self.route_counts["coeffs"] += coeffs
+            self.route_counts["pixels"] += pixels
+
+    def _pixel_prep(self, buffers):
+        stack, status = self.decode_wave(buffers)
+        self._count(0, len(buffers))
+        return ("pixels", {"stack": stack, "status": list(status)})
+
+    def _prepare_coeff_wave(self, buffers):
+        """Coefficient route (sentibank.py:372-416): entropy-decode the
+        wave's dominant-size 4:2:0 JPEGs, which the device reconstructs;
+        everything else (non-JPEG, other subsampling, minority sizes, a
+        failed read) takes the host pixel route. One block grid a wave,
+        made even so that the 4:2:0 chroma grid (bh/2) fits."""
+        from collections import Counter
+
+        from columbiaimagesearch_tpu_torch.models.jpeg_device import (
+            pick_msub,
+        )
+        from columbiaimagesearch_tpu_torch.native.imgpipe import (
+            jpeg_dims,
+            read_coeffs_batch,
+        )
+
+        n = len(buffers)
+        dims = [jpeg_dims(b) for b in buffers]
+        sizes = Counter(d for d in dims if d is not None)
+        if not sizes:
+            return self._pixel_prep(buffers)
+        (h, w), _ = sizes.most_common(1)[0]
+        cand = [i for i in range(n) if dims[i] == (h, w)]
+        msub = pick_msub(h, w, TARGET)
+        bh = -(-h // 8)
+        bw = -(-w // 8)
+        bh += bh & 1
+        bw += bw & 1
+        yc, cc, qt, _, st = read_coeffs_batch(
+            [buffers[i] for i in cand], msub, bh, bw)
+        ok = st == 0
+        ok_idx = [i for i, o in zip(cand, ok) if o]
+        ok_set = set(ok_idx)
+        pix_idx = [i for i in range(n) if i not in ok_set]
+        pix_stack, pix_status = (self.decode_wave(
+            [buffers[i] for i in pix_idx]) if pix_idx else (None, []))
+        status = [0] * n
+        for i, s in zip(pix_idx, pix_status):
+            status[i] = int(s)
+        self._count(len(ok_idx), len(pix_idx))
+        payload = {
+            "ycoef": yc[ok], "ccoef": cc[ok], "qtab": qt[ok],
+            "msub": msub, "h": h, "w": w, "ok_idx": ok_idx,
+            "pix_idx": pix_idx, "pix_stack": pix_stack,
+            "status": status, "n": n,
+        }
+        return ("coeffs", payload)
+
+    def _coeff_pixels(self, payload):
+        """Device half of the coefficient route (sentibank.py:418-446):
+        reconstruct, round half to even to the uint8 staging domain (as
+        ``jnp.round``) and put the pixel-route images back in input order.
+        Returns ([n, 256, 256, 3] uint8 on the device, status [n])."""
+        from columbiaimagesearch_tpu_torch.models.jpeg_device import (
+            CoeffDecoder,
+        )
+
+        if self._coeff_decoder is None:
+            self._coeff_decoder = CoeffDecoder(self.device, target=TARGET)
+        n = payload["n"]
+        parts, order = [], []
+        if payload["ok_idx"]:
+            dec = self._coeff_decoder.decode(
+                payload["ycoef"], payload["ccoef"], payload["qtab"],
+                msub=payload["msub"], h=payload["h"], w=payload["w"])
+            parts.append(torch.round(dec).to(torch.uint8))
+            order.extend(payload["ok_idx"])
+        if payload["pix_idx"]:
+            parts.append(torch.from_numpy(np.ascontiguousarray(
+                payload["pix_stack"])).to(self.device))
+            order.extend(payload["pix_idx"])
+        stack = parts[0] if len(parts) == 1 else torch.cat(parts)
+        if order != list(range(n)):
+            inv = np.empty(n, dtype=np.int64)
+            inv[np.asarray(order, dtype=np.int64)] = np.arange(n)
+            stack = stack[torch.from_numpy(inv).to(self.device)]
+        return stack, payload["status"]
 
     def decode_wave(self, buffers):
         """Decode + resize only: ([n, 256, 256, 3] uint8 host pixels,
@@ -353,8 +491,11 @@ class SentibankFeaturizer:
         return decode_resize_batch(buffers, TARGET, dct_scale=self.dct_scale)
 
     def featurize_pixel_wave(self, stack):
-        """Device half of :meth:`featurize_wave`: decoded pixels -> (feats
+        """Device half of :meth:`featurize_wave`: decoded pixels (host
+        array or device tensor, [n, 256, 256, 3] uint8) -> (feats
         [n, 4096] on the device, n)."""
-        x = torch.from_numpy(np.ascontiguousarray(stack)).to(self.device)
+        x = stack if isinstance(stack, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(stack))
+        x = x.to(self.device)
         return self._forward(preprocess_device(x, self._mean_dev)), len(stack)
 

@@ -1,19 +1,24 @@
-"""Parallel native decode + resize with a per-image PIL path (port of
+"""Parallel native decode + resize with a per-image PIL path, and the
+JPEG coefficient reader of the device decode (port of
 columbiaimagesearch_tpu/native/imgpipe.py:1-198: ``jpeg_dims`` :58,
+``coeffs_available`` :88, ``read_coeffs_batch`` :93,
 ``imgpipe_available`` :146, ``decode_resize_batch`` :150).
 
-The coefficient readers (``coeffs_available``, ``read_coeffs_batch``) feed
-the device JPEG decode, which is not ported yet (ROADMAP.md, still to
-port #10).
+The pixel path builds ``native/imgpipe.cpp``, which needs libjpeg and
+libpng headers; without them every image takes the per-image PIL path.
+The coefficient reader is the port's own ``native/csrc/jpegcoef.cpp``: an
+entropy decoder that needs no library, bit-equal to the JAX package's
+libjpeg reader (``imgpipe_read_coeffs_batch``) with the same contract.
 """
 
 import ctypes
 
 import numpy as np
 
-from columbiaimagesearch_tpu_torch.native.build import load_library
+from columbiaimagesearch_tpu_torch.native.build import build_error, load_library
 
 _lib = None
+_coef_lib = None
 
 
 def _get():
@@ -63,6 +68,82 @@ def jpeg_dims(buf):
             return (h, w) if h > 0 and w > 0 else None
         i += 2 + seglen
     return None
+
+
+def _get_coeffs():
+    global _coef_lib
+    if _coef_lib is None:
+        lib = load_library("jpegcoef")
+        if lib is not None:
+            lib.jpegcoef_read_coeffs_batch.restype = ctypes.c_int
+            lib.jpegcoef_read_coeffs_batch.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_uint16),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int,
+            ]
+        _coef_lib = lib if lib is not None else False
+    return _coef_lib or None
+
+
+def coeffs_available() -> bool:
+    """Whether the coefficient reader built (g++ is all it needs)."""
+    return _get_coeffs() is not None
+
+
+def coeffs_build_error():
+    """The reason the coefficient reader did not build, or None."""
+    _get_coeffs()
+    return build_error("jpegcoef")
+
+
+def read_coeffs_batch(buffers, msub: int, max_bh: int, max_bw: int,
+                      n_threads: int = 0):
+    """Entropy-decode a batch of JPEGs to quantized DCT coefficients: the
+    host half of the device decode (imgpipe.py:93-143). Only 3-component
+    YCbCr 4:2:0 JPEGs whose block grid fits [max_bh, max_bw] are read;
+    other statuses go to :func:`decode_resize_batch`.
+
+    :param msub: side of the low-frequency corner kept per block (1..8)
+    :param n_threads: reader threads; 0 takes every host core
+    :returns: (ycoef [n, max_bh, max_bw, msub*msub] int16,
+        ccoef [n, 2, max_bh//2, max_bw//2, msub*msub] int16,
+        qtab [n, 2, msub*msub] uint16, dims [n, 6] int32
+        (h, w, bh, bw, cbh, cbw), status [n] int32: 0 ok, -1 decode
+        failure, -2 empty, -3 unsupported, -4 grid exceeds the bucket)
+    :raises RuntimeError: the reader did not build (with the reason)
+    """
+    n = len(buffers)
+    m2 = msub * msub
+    ycoef = np.zeros((n, max_bh, max_bw, m2), dtype=np.int16)
+    ccoef = np.zeros((n, 2, max_bh // 2, max_bw // 2, m2), dtype=np.int16)
+    qtab = np.zeros((n, 2, m2), dtype=np.uint16)
+    dims = np.zeros((n, 6), dtype=np.int32)
+    status = np.full(n, -3, dtype=np.int32)
+    if n == 0:
+        return ycoef, ccoef, qtab, dims, status
+    lib = _get_coeffs()
+    if lib is None:
+        raise RuntimeError("the JPEG coefficient reader did not build: "
+                           f"{coeffs_build_error()}")
+    raw = [bytes(b) for b in buffers]
+    arr = (ctypes.c_char_p * n)(*raw)
+    lens = np.asarray([len(b) for b in raw], dtype=np.int64)
+    lib.jpegcoef_read_coeffs_batch(
+        arr, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n, msub, max_bh, max_bw,
+        ycoef.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        ccoef.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        qtab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_threads)
+    return ycoef, ccoef, qtab, dims, status
 
 
 def imgpipe_available() -> bool:

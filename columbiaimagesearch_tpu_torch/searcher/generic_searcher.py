@@ -198,19 +198,24 @@ class GenericSearcher:
             bufs.append(buf.read())
         request = {"dets": dets, "bufs": bufs, "options": options_dict}
         # Decode in THIS (handler) thread when the featurizer supports the
-        # split wave: the coalesced device wave then carries pixels only,
-        # so request decode overlaps the previous wave's device time (and
+        # split wave: the coalesced device wave then carries decoded
+        # pixels or JPEG coefficients only (the featurizer's prep), so
+        # request decode overlaps the previous wave's device time (and
         # parallelizes across handler threads on multi-core hosts) instead
         # of serializing inside the coalescer worker. Gated on the device
         # wave route actually serving this request — otherwise
         # _serve_batch's fallback (_featurize_bufs) would decode a second
-        # time and the pixels would be dead weight.
-        if (bufs and hasattr(self.featurizer, "decode_wave")
-                and hasattr(self.featurizer, "featurize_pixel_wave")
+        # time and the prep would be dead weight. The JAX handler decodes
+        # pixels here whatever its featurizer's device_decode
+        # (generic_searcher.py:184-192); the port carries the coefficient
+        # route through, so a query image takes the route its stored
+        # features took.
+        if (bufs and hasattr(self.featurizer, "prepare_wave")
+                and hasattr(self.featurizer, "featurize_preps")
                 and self._use_device_feats(options_dict)):
-            pixels, status = self.featurizer.decode_wave(bufs)
-            if all(int(s) == 0 for s in status):
-                request["pixels"] = pixels
+            prep = self.featurizer.prepare_wave(bufs)
+            if all(int(s) == 0 for s in prep[1]["status"]):
+                request["prep"] = prep
         return request
 
     def _featurize_bufs(self, bufs, use_device):
@@ -339,15 +344,13 @@ class GenericSearcher:
                         and hasattr(self.featurizer, "featurize_wave")):
                     # Wave route: keep the whole forward output on the
                     # device and record per-request row spans.
-                    if (hasattr(self.featurizer, "featurize_pixel_wave")
-                            and all("pixels" in requests[ri]
+                    if (hasattr(self.featurizer, "featurize_preps")
+                            and all("prep" in requests[ri]
                                     for ri in rids)):
-                        # Pixels were decoded in the handler threads
-                        # (_prepare_request): the wave is device-only.
-                        stack = np.concatenate(
-                            [requests[ri]["pixels"] for ri in rids])
-                        w, n_w = self.featurizer.featurize_pixel_wave(stack)
-                        status = [0] * n_w
+                        # The handler threads decoded (_prepare_request):
+                        # the wave is device-only.
+                        w, n_w, status = self.featurizer.featurize_preps(
+                            [requests[ri]["prep"] for ri in rids])
                     else:
                         w, n_w, status = self.featurizer.featurize_wave(
                             flat)

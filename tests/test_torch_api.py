@@ -353,7 +353,7 @@ def test_serve_batch_isolates_undecodable_image(serving_pair, tmp_path):
     reqs = [coal._prepare_request([p], get_buffer_from_filepath,
                                   {"max_returned": 2}, True)
             for p in (paths[0], str(junk))]
-    assert "pixels" in reqs[0] and "pixels" not in reqs[1]
+    assert "prep" in reqs[0] and "prep" not in reqs[1]
     good, bad = coal._serve_batch(reqs)
     assert isinstance(bad, Exception)
     assert len(good["AllSimilarImages"][0]["SimilarImages"]["ImageSha1s"]) \

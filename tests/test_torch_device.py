@@ -73,3 +73,41 @@ def test_run_search_api_raises_without_a_card(no_card, tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_search_api.main(["-c", str(conf), "--device", "cuda",
                              "--retry-delay", "0"])
+
+
+def test_new_entry_points_raise_without_a_card(no_card):
+    """The entry points of the device decode, the renderer, face training
+    and preprocessing take the card by default, like the featurizer."""
+    from columbiaimagesearch_tpu_torch.extraction.extractor import (
+        get_featurizer,
+    )
+    from columbiaimagesearch_tpu_torch.models.face_align import (
+        init_landmark_params,
+        train_landmark_net,
+    )
+    from columbiaimagesearch_tpu_torch.models.preprocess import (
+        default_mean_image,
+        preprocess_batch,
+        preprocess_buffers,
+    )
+    from columbiaimagesearch_tpu_torch.utils.synthimg import (
+        make_render_batch,
+        make_render_one,
+    )
+
+    img = np.zeros((8, 8, 3), np.uint8)
+    calls = [
+        lambda: get_featurizer("sentibank"),
+        lambda: make_render_batch(2),
+        lambda: make_render_one(16),
+        lambda: train_landmark_net(init_landmark_params(0),
+                                   np.zeros((1, 64, 64, 1), np.float32),
+                                   np.zeros((1, 5, 2), np.float32), steps=1),
+        lambda: preprocess_batch([img], default_mean_image()),
+        lambda: preprocess_buffers([], default_mean_image()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert preprocess_batch([img], default_mean_image(),
+                            device="cpu").device.type == "cpu"

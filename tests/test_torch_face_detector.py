@@ -122,5 +122,26 @@ def test_get_detector_builds_face_detector(kind):
 
 
 def test_train_waits_for_training_slice():
-    with pytest.raises(NotImplementedError, match="#12"):
-        ConvHOGFaceDetector(device="cpu").train([], [])
+    """Template training is ported (tests/test_torch_face_train.py holds
+    it against JAX's): a short fit on face_synth crops sets the template
+    and bias and returns the detector."""
+    from columbiaimagesearch_tpu_torch.models.face_synth import (
+        render_face,
+        render_hard_negative,
+    )
+    from PIL import Image
+
+    def win(a):
+        return np.asarray(Image.fromarray(a).resize((80, 80)), np.float32)
+
+    pos = []
+    for i in range(6):
+        img, (l, t, r, b) = render_face(i)
+        pos.append(win(img[t:b, l:r]))
+    neg = [win(render_hard_negative(k % 6, k)) for k in range(12)]
+    det = ConvHOGFaceDetector(device="cpu")
+    assert det.train(pos, neg, steps=50) is det
+    assert det.template.shape == (10, 10, 8) and det.bias != 0.0
+    f = lambda im: float(score_map(hog_features(torch.from_numpy(im)),
+                                   det.template, det.bias).max())
+    assert min(map(f, pos)) > max(map(f, neg))

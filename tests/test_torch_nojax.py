@@ -1,14 +1,17 @@
 """The port runs without JAX: a fresh interpreter imports every module of
 ``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
 exhaustive, the raw-feature fast path, one ``SearcherLOPQ`` facade
-search, a 2-shard ``ShardedLOPQSearcher`` and the host ``LOPQSearcher``),
-trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
-evaluates one, runs the face embedder and the detector's device half, and
-never
+search, a 2-shard ``ShardedLOPQSearcher``, the host ``LOPQSearcher`` and a
+wide-V searcher), trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
+evaluates one, writes and reads a ``.mat`` model, renders synthetic
+images, runs the face embedder and the detector's device half, trains the
+detector template and the landmark net a few steps, and never
 loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
 the image routes import, lazily. Then one checker + processor pass of the
-ingest pipeline over three images on the CPU, and a searcher backed by
-the native code store, still without JAX."""
+ingest pipeline over three images on the CPU, the device-decode route on
+three JPEGs, ``chip_smoke`` imported, and a searcher backed by the native
+code store, still without JAX. ``chip_smoke.py`` imports nothing of JAX
+in any function either (its source is parsed)."""
 
 import os
 import subprocess
@@ -17,6 +20,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
+import os
 import sys
 import numpy as np
 import torch
@@ -52,7 +56,9 @@ from columbiaimagesearch_tpu_torch.searcher import (generic_searcher,
                                                     searcher_lopq)
 from columbiaimagesearch_tpu_torch import parallel
 from columbiaimagesearch_tpu_torch.parallel import mesh, sharded
-from columbiaimagesearch_tpu_torch.index import multisequence
+from columbiaimagesearch_tpu_torch.index import multisequence, proto, protos
+from columbiaimagesearch_tpu_torch.models import jpeg_device
+from columbiaimagesearch_tpu_torch.utils import synthimg
 
 rng = np.random.RandomState(0)
 V, F, S, Dh = 8, 2, 16, 8
@@ -118,6 +124,24 @@ assert e.shape == (1, 128) and e.dtype == np.float64, e.shape
 smaps = face_detector.ConvHOGFaceDetector(device="cpu").score_maps(
     [(np.zeros((96, 96), np.float32), 1.0, 1.0)])
 assert smaps[0].shape == (3, 3), smaps[0].shape
+wide = searcher.LOPQSearcherTorch(m)
+wide.WIDE_V_THRESHOLD = V
+wide.add_data(X, store_feats=True)
+wres, _ = wide.search(X[7], quota=50, limit=5, with_dists=True, rerank_nb=20)
+assert wide._dev["cell_start"] is None and wres[0].id == 7, wres
+work0 = os.environ["NOJAX_TMP"]
+m.export_mat(os.path.join(work0, "m.mat"))
+back = model.LOPQModel.load_mat(os.path.join(work0, "m.mat"), device="cpu")
+assert torch.equal(back.Rs, m.Rs)
+imgs = synthimg.make_render_batch(2, height=48, width=64, device="cpu")(
+    torch.Generator().manual_seed(0))
+assert imgs.shape == (2, 48, 64, 3)
+det = face_detector.ConvHOGFaceDetector(device="cpu")
+det.train([np.full((80, 80), 100.0, np.float32)],
+          [np.zeros((80, 80), np.float32)], steps=3)
+lp, _ = face_align.train_landmark_net(
+    face_align.init_landmark_params(0), np.zeros((2, 64, 64, 1), np.float32),
+    np.full((2, 5, 2), 0.5, np.float32), steps=2, batch=2, device="cpu")
 assert lut.build_luts.launches == 0
 assert exhaustive_adc.adc_scan_all.launches == 0
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
@@ -125,7 +149,7 @@ bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "columbiaimagesearch_tpu"
        or k.startswith("columbiaimagesearch_tpu.")]
 assert not bad, bad
-import os, tempfile
+import tempfile
 from PIL import Image
 work = tempfile.mkdtemp(dir=os.environ["NOJAX_TMP"])
 os.makedirs(os.path.join(work, "imgs"))
@@ -143,6 +167,17 @@ sids, fts = kv.get_features_from_sha1s(
     [r for r, _ in kv.scan_from_row(kv.table_sha1infos_name)],
     "sentibank_feat_full_image")
 assert len(sids) == 3 and fts[0].shape == (4096,)
+import io
+jpgs = []
+for i in range(3):
+    b = io.BytesIO()
+    Image.fromarray(rng.randint(0, 255, (48, 64, 3)).astype(np.uint8)).save(
+        b, "JPEG")
+    jpgs.append(b.getvalue())
+f = extractor.get_featurizer("sentibank", device="cpu")
+fts, st = f.featurize_buffers(jpgs)
+assert f.device_decode and f.route_counts["coeffs"] == 3 and list(st) == [0] * 3
+import chip_smoke
 cs = searcher.LOPQSearcherTorch(m, codestore_path=os.path.join(work, "c.cs"))
 cs.add_data(X[:100])
 cs._codestore.close()
@@ -155,6 +190,23 @@ bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
 assert not bad, bad
 print("ok", visited)
 """
+
+
+def test_chip_smoke_imports_no_jax():
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert "columbiaimagesearch_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "optax",
+                                                   "columbiaimagesearch_tpu")]
+    assert not bad, bad
 
 
 def test_port_imports_and_searches_without_jax(tmp_path):

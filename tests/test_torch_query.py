@@ -173,15 +173,29 @@ def test_pack_unpack_roundtrip():
 
 @pytest.mark.parametrize("what", ["wide-square", "wide-V"])
 def test_unported_paths_raise(setup, what):
-    """Wide-V mode still raises. The wide square (B*B > 16384 without
-    strips) is ported: at V=B=130 it matches the JAX sort-free path
+    """Both paths that once raised are ported. Wide-V mode
+    (``cell_start=None``) looks buckets up in the sorted cell ids and
+    returns exactly the dense table's results at every rung kind
+    (tests/test_torch_wide_v.py holds it against JAX). The wide square
+    (B*B > 16384 without strips) at V=B=130 matches the JAX sort-free path
     (tests/test_torch_wide_probe.py holds it at V=256)."""
     model, _, _, (tcodes, tcs, _), _, queries = setup
-    X = torch.from_numpy(queries[:1])
+    X = torch.from_numpy(queries)
     if what == "wide-V":
-        with pytest.raises(NotImplementedError, match="wide-V"):
+        counts = (tcs[1:] - tcs[:-1]).long()
+        cells_sorted = torch.repeat_interleave(
+            torch.arange(V * V, dtype=torch.int32), counts)
+        with pytest.raises(ValueError, match="cells_sorted"):
             lopq_query(X, *_tables(model), tcodes, None, QUOTA, V=V, B=8,
                        Q=QB, K=K)
+        for B, SB in ((8, 0), (8, 2), (V, 0)):
+            dense = lopq_query(X, *_tables(model), tcodes, tcs, QUOTA, V=V,
+                               B=B, Q=QB, K=K, SB=SB)
+            wide = lopq_query(X, *_tables(model), tcodes, None, QUOTA, V=V,
+                              B=B, Q=QB, K=K, SB=SB,
+                              cells_sorted=cells_sorted)
+            for a, b in zip(dense, wide):
+                assert torch.equal(a, b)
         return
     import jax.numpy as jnp
 

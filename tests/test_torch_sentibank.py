@@ -172,7 +172,8 @@ def test_golden_fc7_on_grace_hopper():
     from tests.test_sentibank_weights import _deterministic_caffe_blobs
 
     img = np.asarray(Image.open(HOPPER).convert("RGB"))
-    x = preprocess_batch([img, img[:, ::-1]], default_mean_image())
+    x = preprocess_batch([img, img[:, ::-1]], default_mean_image(),
+                         device="cpu")
     net = DeepSentibank.from_state_dict(
         load_caffe_weights(_deterministic_caffe_blobs()))
     with torch.inference_mode():
@@ -315,8 +316,17 @@ def test_featurizer_bf16_and_options(featurizer_pair):
     cos = (a * b.numpy()).sum(1) / (np.linalg.norm(a, axis=1)
                                     * np.linalg.norm(b.numpy(), axis=1))
     assert (cos > 0.99).all(), cos
-    with pytest.raises(NotImplementedError, match="still to port #10"):
-        SentibankFeaturizer(params=tf.params, device_decode=True)
+    dd = SentibankFeaturizer(params=tf.params, device_decode=True,
+                             device="cpu")
+    assert dd.device_decode and not tf.device_decode
+    from columbiaimagesearch_tpu_torch.native import imgpipe
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(imgpipe, "coeffs_available", lambda: False)
+        mp.setattr(imgpipe, "coeffs_build_error", lambda: "g++: not found")
+        with pytest.raises(RuntimeError, match="g\\+\\+: not found"):
+            SentibankFeaturizer(params=tf.params, device_decode=True,
+                                device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         SentibankFeaturizer(params=tf.params, compute_dtype="float16")
 
