@@ -180,14 +180,35 @@ V=256, M=8, S=256, D=128). Phases:
    keys, then ``load_codes``, then the index rows through
    ``add_codes``, ``byB64`` from 1 and 32 clients and one ``byPATH``,
    every query face found first as itself, one coalesced face wave equal
-   to sequential ``search_from_feats``, ``lut_build`` launched).
+   to sequential ``search_from_feats``, ``lut_build`` launched);
+12. tools (TOOLS), the operator tools' ``python -m`` modules on the card,
+   under ``build/tools/``: ``build_index`` for conf/conf_search_face_local
+   .json from an .fvecs of its 500,000 rows (the storer's model and the
+   code store answer 32 queries exactly as a searcher fed
+   ``predict_batch`` in memory) and for the release shapes (``lopq_pca``
+   4096 -> 256, V=4096) from an .npy of 262,144 raw rows drawn as in 2a
+   (``pca_P`` spans the basis, every stored code is the loaded model's
+   encoding of its row), with each stage's seconds; ``eval_recall`` at its
+   defaults (1,000,000 rows, dim 128, V=256, 100 queries, quota 10,000,
+   probe widths adaptive and 64; the fused rerank's recall@k at least the
+   probed one's at every k, and at width 64 its top-100 equal to a
+   float64 re-sort of the probed top-1,000 but rounding ties), its
+   exhaustive stage on a V=128 model of the same rows and 8 of its
+   queries replayed through both kernels' plain versions;
+   ``eval_recall_realfeat`` at 20,000 rows, V 256; ``train_face_template
+   --synth 120`` (the template round-trips bit-equal, the detector loaded
+   from it finds the trained one's boxes), ``eval_face_detector`` on 20
+   scenes (AP beside the committed 0.6997, not gated); and
+   ``drop_weights --dry-run``.
 
 Before the ``kernels`` line, a ``{"train": {...}}`` line carries the stage
 seconds, the checks' numbers, the recalls, and the card's name and power
 limit, an ``{"ingest": {...}}`` line the pipeline's, the refresh's
 and the code store's numbers, and a ``{"sharded": {...}}`` line the
-sharded phases' numbers. The last line is ``{"ok": true, "device": {...}}``; any failure
-raises and exits non-zero before it. Run from the root of a checkout:
+sharded phases' numbers, and one line each for the wide, model I/O,
+decode, face training and tools phases. The last line is
+``{"ok": true, "device": {...}}``; any failure raises and exits non-zero
+before it. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -268,10 +289,12 @@ SERVING_DIST_ATOL = 1e-4
 #: (drawn as the 2,000,000 training rows are); and
 #: conf/conf_search_sharded.json served over HTTP inside the serving phase
 #: (its pipeline store), ``single`` requests from one client and one round
-#: of ``clients``
+#: of ``clients`` (8, cut from 32 to hold the run's time: each request's
+#: host rerank reads 4,096 candidates through sqlite, and the round of 32
+#: took ~30 s)
 SHARDED = dict(shards=4, probe=64, self_queries=100, dp_rows=1_048_576,
                lloyd_rows=2_000_000, conf="conf/conf_search_sharded.json",
-               single=4, clients=32, seed=0)
+               single=4, clients=8, seed=0)
 #: the pinned LUT wave against its replay with the plain LUT (absolute)
 SHARDED_DIST_ATOL = 1e-4
 #: the brute plan across shards against the single store's (absolute, a
@@ -1715,6 +1738,30 @@ def phase_scan_check(dev, card, seed):
     return worst, out
 
 
+#: a rank where a card path's ids differ from a plain selection must hold
+#: two rows at distances this close (relative to max(1, d)): a rounding tie
+SELECT_TIE_RTOL = 1e-4
+
+
+def plain_selection_check(ids, dists, want_ids, want_dists, what):
+    """One query's ids from a card path (best first, at ``dists``) held to
+    a stable selection on plain distances (``want_ids`` at
+    ``want_dists``): the same id at every rank but rounding ties, where
+    the two distances agree within SELECT_TIE_RTOL. Returns the swaps."""
+    ids, dists = np.asarray(ids), np.asarray(dists, np.float64)
+    want_dists = np.asarray(want_dists, np.float64)
+    diff = ids != np.asarray(want_ids)
+    far = np.abs(dists - want_dists) > SELECT_TIE_RTOL * np.maximum(
+        1.0, want_dists)
+    bad = np.nonzero(diff & far)[0]
+    if len(bad):
+        r = int(bad[0])
+        raise AssertionError(f"{what}: rank {r}: id {ids[r]} at {dists[r]} "
+                             f"where the plain selection has {want_ids[r]} "
+                             f"at {want_dists[r]}")
+    return int(diff.sum())
+
+
 def _same_ids_but_ties(got, want, atol, what):
     """Two waves of (results, visited): the same ids in order except swaps
     between distances within ``atol`` (float rounding ties), and every
@@ -2258,16 +2305,10 @@ def phase_exhaustive(dev, card, face):
     swaps = 0
     for nq, q in itertools.product(cfg["nqs"], range(4)):
         ids, dists = results[nq][q]
-        want_ids = ex._ids[pi[q]].tolist()
         np.testing.assert_allclose(dists, pv[q], rtol=LUT_RTOL,
                                    atol=LUT_ATOL)
-        diff = np.array(ids) != np.array(want_ids)
-        if (np.abs(dists - pv[q])[diff]
-                > 1e-4 * np.maximum(1, pv[q][diff])).any():
-            raise AssertionError(f"exhaustive nq={nq} query {q}: ids differ "
-                                 "from the plain selection beyond rounding "
-                                 "ties")
-        swaps += int(diff.sum())
+        swaps += plain_selection_check(ids, dists, ex._ids[pi[q]], pv[q],
+                                       f"exhaustive nq={nq} query {q}")
     del plain, pv, pi, lut0, lut1, args
     for nq in cfg["nqs"]:
         ex.NQ = nq
@@ -3821,15 +3862,16 @@ DECODE = dict(photos=512, h=480, w=640, baseline=256, progressive=128,
 #: Lanczos resize (tests/test_jpeg_device.py:100-117) and the fc7 cosine
 #: of the two routes (:145-180)
 DECODE_MEAN, DECODE_P99, DECODE_COS = 3.0, 12.0, 0.995
-#: face training: the detector template from ``identities`` x 7 jittered
-#: ``face_synth`` head crops and ``hard`` hard negatives plus 12 crops of
-#: each of ``neg_scenes`` face-free scenes, ``steps`` steps on the card
+#: face training: the detector template from the crops of
+#: ``train_face_template.synth_training_set`` (``identities`` x 7
+#: jittered ``face_synth`` head crops, hard negatives and 12 crops of each
+#: face-free scene, from ``RandomState(seed)``), ``steps`` steps on the card
 #: and on the CPU (templates within rtol 1e-3, atol 1e-5), checked on
 #: ``heldout_scenes`` scenes of held-out identities; the 68-point landmark
 #: net ``lm_steps`` Adam steps on ``lm_ids`` identities x 3 crops, held to
 #: tests/test_face_align68.py:81-91 (loss < 5e-3, held-out error < 0.06)
-FACE_TRAIN = dict(identities=57, hard=300, neg_scenes=42, steps=300,
-                  heldout_scenes=8, lm_ids=40, lm_steps=400, seed=0)
+FACE_TRAIN = dict(identities=57, steps=300, heldout_scenes=8, lm_ids=40,
+                  lm_steps=400, seed=0)
 FACE_TRAIN_RTOL, FACE_TRAIN_ATOL = 1e-3, 1e-5
 LANDMARK_LOSS, LANDMARK_ERR = 5e-3, 0.06
 
@@ -4346,47 +4388,6 @@ def phase_decode(dev, card, cfg=None):
     return numbers
 
 
-def face_training_set(cfg):
-    """Detector training crops from the procedural faces
-    (scripts/train_face_template.py ``synth_training_set``, on the port's
-    ``face_synth``): 7 jittered head crops of each identity, hard
-    negatives, and 12 crops of each face-free scene."""
-    from PIL import Image
-
-    from columbiaimagesearch_tpu_torch.models.face_detector import WINDOW
-    from columbiaimagesearch_tpu_torch.models.face_synth import (
-        make_scene,
-        render_face,
-        render_hard_negative,
-    )
-
-    def win(a):
-        return np.asarray(Image.fromarray(a).resize(
-            (WINDOW, WINDOW), Image.BILINEAR), dtype=np.float32)
-
-    rng = np.random.RandomState(cfg["seed"])
-    pos, neg = [], []
-    for ident in range(cfg["identities"]):
-        img, (l, t, r, b) = render_face(ident)
-        H, W = img.shape
-        for dx, dy, grow in ((0, 0, 0), (-8, 0, 0), (8, 0, 0), (0, -8, 8),
-                             (0, 8, -8), (0, 0, 14), (0, 0, -10)):
-            x0, y0 = l + dx - grow, t + dy - grow
-            x1, y1 = r + dx + grow, b + dy + grow
-            pos.append(win(img[max(y0, 0):min(y1, H),
-                               max(x0, 0):min(x1, W)]))
-    for k in range(cfg["hard"]):
-        neg.append(win(render_hard_negative(k % 6, k // 6)))
-    for seed in range(cfg["neg_scenes"]):
-        scene, _ = make_scene(900000 + seed, [], n_faces=0, n_distractors=5)
-        for _ in range(12):
-            s = rng.randint(70, 220)
-            y0 = rng.randint(0, scene.shape[0] - s)
-            x0 = rng.randint(0, scene.shape[1] - s)
-            neg.append(win(scene[y0:y0 + s, x0:x0 + s]))
-    return pos, neg
-
-
 def phase_face_train(dev, card, cfg=None):
     """Face training on the card (see FACE_TRAIN): the detector template
     against the same training on the CPU and on held-out scenes, and the
@@ -4401,12 +4402,17 @@ def phase_face_train(dev, card, cfg=None):
     from columbiaimagesearch_tpu_torch.models.face_detector import (
         ConvHOGFaceDetector,
     )
+    from columbiaimagesearch_tpu_torch.models.eval_face_detector import iou
     from columbiaimagesearch_tpu_torch.models.face_synth import make_scene
+    from columbiaimagesearch_tpu_torch.models.train_face_template import (
+        synth_training_set,
+    )
 
     cfg = dict(FACE_TRAIN, **(cfg or {}))
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
-    pos, neg = face_training_set(cfg)
+    pos, neg = synth_training_set(cfg["identities"],
+                                  np.random.RandomState(cfg["seed"]))
     set_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     det = ConvHOGFaceDetector(device=dev, threshold=0.0).train(
@@ -4422,13 +4428,6 @@ def phase_face_train(dev, card, cfg=None):
     np.testing.assert_allclose(got, want, rtol=FACE_TRAIN_RTOL,
                                atol=FACE_TRAIN_ATOL)
     t_err = float(np.abs(got - want).max())
-
-    def iou(a, b):
-        ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
-        iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
-        i = ix * iy
-        return i / ((a[2] - a[0]) * (a[3] - a[1])
-                    + (b[2] - b[0]) * (b[3] - b[1]) - i)
 
     found = total = 0
     for k in range(cfg["heldout_scenes"]):
@@ -4476,6 +4475,421 @@ def phase_face_train(dev, card, cfg=None):
                                s=lm_s, loss=loss, heldout_err=err))
 
 
+# ------------------------------------------------------- operator tools
+
+#: the operator tools, each through its ``python -m`` module's
+#: ``main``/``run`` on the card: ``build_index`` for ``face_conf`` from an
+#: .fvecs of its nb_train rows of the face mixture, then ``face_queries``
+#: queries answered from the storer's model and the code store equal to a
+#: searcher fed ``predict_batch`` in memory; ``build_index --model-type
+#: lopq_pca`` at the release shapes (TRAIN's ``conf``) from an .npy of
+#: ``release_rows`` raw rows drawn as the training phase draws them (cut
+#: from nb_train 2,000,000: 33 GB of .npy on the host, and the run's time),
+#: its stage seconds printed and every stored code equal to the loaded
+#: model's ``predict_batch`` of its row; ``eval_recall`` at its defaults
+#: with --probe-widths 0,64 and --skip-exact, its fused rerank held to a
+#: plain re-sort (exact float64 distances from the rows) of the probed
+#: top-1000 at the pinned width ``rerank_width``, its exhaustive stage on a
+#: V=``exact_V`` model of the same rows (at V=256 the 1,000,000 rows fill
+#: all 65,536 cells and pad to 8,388,608 rows, past ExhaustiveADC's 8x
+#: guard, in both packages) and ``replay`` of its queries through both
+#: kernels' plain versions; ``eval_recall_realfeat`` at 20,000 rows and
+#: V 256 (cut from 200,000 and 1,024: fc7 runs at ~1,300 img/s);
+#: ``train_face_template --synth synth``, ``eval_face_detector`` on
+#: ``scenes`` scenes (AP printed beside the committed ``ref_ap`` of
+#: benchmarks/r04_face_detector_eval.json, not gated) and
+#: ``drop_weights --dry-run``
+TOOLS = dict(face_conf="conf/conf_search_face_local.json", face_queries=32,
+             release_rows=262_144,
+             recall_args=("--probe-widths", "0,64", "--skip-exact"),
+             rerank_width=64, exact_V=128, replay=8,
+             realfeat_args=("--n", "20000", "--V", "256"),
+             synth=120, scenes=20, ref_ap=0.6997, seed=0,
+             face_overrides={})
+
+
+def build_and_load(dev, work, name, X, argv):
+    """``X`` written under ``work`` (``name``'s suffix picks .npy or
+    .fvecs), ``python -m ...index.build_index`` on it with ``argv``, and
+    the model loaded back from its storer onto ``dev``. Returns (the
+    build's result, the model, the file's write seconds)."""
+    from columbiaimagesearch_tpu_torch.index import build_index
+    from columbiaimagesearch_tpu_torch.store.storer import LocalStorer
+    from columbiaimagesearch_tpu_torch.utils.xvecs import save_xvecs
+
+    path = os.path.join(work, name)
+    t0 = time.perf_counter()
+    if name.endswith(".npy"):
+        np.save(path, X)
+    else:
+        save_xvecs(X, path)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(work, os.path.splitext(name)[0])
+    res = build_index.main(["--features", path, "--out", out] + argv
+                           + (["--cpu"] if dev.type == "cpu" else []))
+    model = LocalStorer(os.path.join(out, "storer")).load(
+        res["model_str"]).to(dev)
+    return res, model, write_s
+
+
+def tools_face_build(dev, card, work, cfg):
+    """``build_index`` for the face conf from an .fvecs file; the offline
+    index answers like one built in memory."""
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+    )
+
+    with open(os.path.join(ROOT, cfg["face_conf"])) as f:
+        conf = dict(json.load(f), **cfg["face_overrides"])
+    V, M = int(conf["SEARCHLOPQ_lopq_V"]), int(conf["SEARCHLOPQ_lopq_M"])
+    S, n = int(conf["SEARCHLOPQ_lopq_subq"]), int(conf["SEARCHLOPQ_nb_train"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] + 21)
+    comp = torch.randn(256, FACE["D"], generator=g, device=dev)
+    comp /= comp.norm(dim=1, keepdim=True)
+    X = mixture(n, comp, g).cpu().numpy()
+    Q = mixture(cfg["face_queries"], comp, g)
+    res, model, write_s = build_and_load(dev, work, "face.fvecs", X, [
+        "--model-type", "lopq", "--V", str(V), "--M", str(M), "--subq",
+        str(S), "--nb-train", str(n), "--seed", str(cfg["seed"])])
+    t0 = time.perf_counter()
+    offline = LOPQSearcherTorch(model, codestore_path=res["codes"])
+    nb = offline.get_nb_indexed()
+    load_s = time.perf_counter() - t0
+    mem = LOPQSearcherTorch(model)
+    mem.add_codes(model.predict_batch(X), [str(i) for i in range(n)])
+    kw = dict(quota=FACE_PHASE["quota"], limit=FACE_PHASE["limit"],
+              with_dists=True, with_codes=False)
+    got = offline.search_batch(Q, **kw)
+    want = mem.search_batch(Q, **kw)
+    offline._codestore.close()
+    if nb != n:
+        raise AssertionError(f"tools: the face build's code store holds {nb}"
+                             f" rows, not {n}")
+    for i, ((a, _), (b, _)) in enumerate(zip(got, want)):
+        if ([(r.id, r.dist) for r in a] != [(r.id, r.dist) for r in b]
+                or len(a) != FACE_PHASE["limit"]):
+            raise AssertionError(f"tools: offline face index query {i} "
+                                 "differs from the in-memory searcher's")
+    stages = {k: round(v, 3) for k, v in res["stages"].items()}
+    log(f"tools: build_index {cfg['face_conf']} (lopq V={V} M={M} S={S}) "
+        f"from {n} rows of .fvecs (written in {write_s:.2f}s): stage "
+        f"seconds {stages}; LOPQSearcherTorch from the storer + code store "
+        f"in {load_s:.2f}s; {len(Q)} queries equal to the in-memory "
+        f"searcher's (ids and distances) [{card}]")
+    return dict(rows=n, stages=stages, fvecs_write_s=write_s,
+                load_s=load_s)
+
+
+def tools_release_build(dev, card, work, cfg):
+    """``build_index --model-type lopq_pca`` at the release shapes from an
+    .npy of raw rows drawn as the training phase draws them; the PCA
+    spans the rows' basis and every stored code is the loaded model's
+    encoding of its row."""
+    from columbiaimagesearch_tpu_torch.index.build_index import encode_rows
+    from columbiaimagesearch_tpu_torch.native.codestore import CodeStore
+
+    tc = TRAIN
+    with open(os.path.join(ROOT, tc["conf"])) as f:
+        conf = dict(json.load(f), **tc["overrides"])
+    V, M = int(conf["SEARCHLOPQ_lopq_V"]), int(conf["SEARCHLOPQ_lopq_M"])
+    S = int(conf["SEARCHLOPQ_lopq_subq"])
+    D = int(conf["SEARCHLOPQ_lopq_pcadims"])
+    n = cfg["release_rows"]
+    src = raw_source(dev, D, tc["raw_dim"], tc["noise"], tc["seed"])
+    X = raw_rows(n, src).cpu().numpy()
+    res, model, write_s = build_and_load(dev, work, "release.npy", X, [
+        "--model-type", "lopq_pca", "--V", str(V), "--M", str(M), "--subq",
+        str(S), "--pca-dims", str(D), "--nb-train", str(n), "--seed",
+        str(cfg["seed"])])
+    cos = float(torch.linalg.svdvals(src["basis"] @ model.pca_P).min())
+    if not cos >= PCA_COS_MIN:
+        raise AssertionError(f"tools: the release build's pca_P does not "
+                             f"span the basis (least principal cosine {cos})")
+    cs = CodeStore(res["codes"], m=M)
+    try:
+        cells, codes, ids = cs.read_all()
+    finally:
+        cs.close()
+    want_cells, want_codes = encode_rows(model, X)
+    rows = np.asarray(ids, dtype=np.int64)
+    if not (len(rows) == n and np.array_equal(np.sort(rows), np.arange(n))
+            and np.array_equal(cells, want_cells[rows])
+            and np.array_equal(codes, want_codes[rows])):
+        raise AssertionError("tools: the release build's code store does not "
+                             "hold the loaded model's codes of its rows")
+    stages = {k: round(v, 3) for k, v in res["stages"].items()}
+    log(f"tools: build_index --model-type lopq_pca {tc['conf']} ({tc['raw_dim']}"
+        f" -> {D}, V={V} M={M} S={S}) from an .npy of {n} raw rows (written "
+        f"in {write_s:.2f}s): stage seconds {stages}; pca_P spans the "
+        f"basis (least principal cosine {cos:.6f}); the {n} stored codes "
+        f"equal the loaded model's predict_batch [{card}]")
+    return dict(rows=n, stages=stages, npy_write_s=write_s,
+                pca_cos_min=cos)
+
+
+def exhaustive_replay(model, coarse, fine, queries, exact_ids):
+    """The exhaustive stage's first queries through the plain versions of
+    both kernels (the LUT of every cluster, the scan) held to a stable
+    selection on the plain distances (plain_selection_check). Returns
+    the tie swaps."""
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        adc_scan_all_plain,
+        build_padded_layout,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts_plain
+
+    dev, V = model.device, model.V
+    cells = coarse[:, 0].astype(np.int64) * V + coarse[:, 1].astype(np.int64)
+    codes_padded, block_cell, block_count, row_of = build_padded_layout(
+        cells, fine)
+    by_row = np.full(len(codes_padded), -1, np.int64)
+    by_row[row_of] = np.arange(len(cells))
+    nq, Dh = len(queries), model.Cs.shape[2]
+    x2 = torch.as_tensor(queries, device=dev).reshape(nq, 2, Dh)
+    isel = torch.arange(V, device=dev).expand(nq, 2, V)
+    t = build_luts_plain(x2, isel, model.Cs, model.Rs, model.mus, model.subs)
+    luts = [t[:, s].permute(1, 2, 3, 0).contiguous() for s in range(2)]
+    plain = adc_scan_all_plain(
+        torch.from_numpy(codes_padded).to(dev),
+        torch.from_numpy(block_cell).to(dev),
+        torch.from_numpy(block_count).to(dev), *luts, V=V).cpu().numpy()
+    swaps = 0
+    for q, got in enumerate(exact_ids):
+        order = np.argsort(plain[q], kind="stable")[:len(got)]
+        swaps += plain_selection_check(
+            got, plain[q, row_of[np.asarray(got)]], by_row[order],
+            plain[q, order], f"tools: exhaustive replay query {q}")
+    return swaps
+
+
+def rerank_replay(model, coarse, fine, X, queries, quota, width, dtype):
+    """The fused device rerank (``eval_recall.RERANK_NB``) at the pinned
+    probe width ``width`` held to a plain re-sort of the same searcher's
+    probed top-RERANK_NB by exact float64 L2 distances from the rows
+    ``X``: each query's distances within SELECT_TIE_RTOL and its ids by
+    plain_selection_check. Returns the tie swaps."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+    )
+
+    s = LOPQSearcherTorch(model, rerank_dtype=dtype)
+    s.add_codes((coarse, fine), feats=X)
+    s.probe_width = width
+    kw = dict(quota=quota, with_codes=False)
+    fused = s.search_batch(queries, limit=eval_recall.LIMIT, with_dists=True,
+                           rerank_nb=eval_recall.RERANK_NB, **kw)
+    probed = s.search_batch(queries, limit=eval_recall.RERANK_NB, **kw)
+    swaps = 0
+    for q, ((got, _), (cand, _)) in enumerate(zip(fused, probed)):
+        rows = np.array([r.id for r in cand], np.int64)
+        d = np.sqrt(((X[rows].astype(np.float64)
+                      - queries[q].astype(np.float64)) ** 2).sum(axis=1))
+        order = np.argsort(d, kind="stable")[:len(got)]
+        dists = np.array([r.dist for r in got])
+        if len(got) != min(eval_recall.LIMIT, len(rows)):
+            raise AssertionError(f"tools: fused rerank query {q}: "
+                                 f"{len(got)} results")
+        np.testing.assert_allclose(dists, d[order], rtol=SELECT_TIE_RTOL,
+                                   err_msg=f"tools: fused rerank query {q}")
+        swaps += plain_selection_check([r.id for r in got], dists,
+                                       rows[order], d[order],
+                                       f"tools: fused rerank query {q}")
+    return swaps
+
+
+def tools_recall(dev, card, work, cfg):
+    """``eval_recall`` at its defaults (probed sweep and fused rerank),
+    its exhaustive stage on a V=exact_V model of the same rows, and the
+    replay of that stage through both kernels' plain versions."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall
+
+    t0 = time.perf_counter()
+    args = eval_recall.parse_args(list(cfg["recall_args"]))
+    artifact, state = eval_recall.run(args)
+    run_s = time.perf_counter() - t0
+    by = {(r["method"], r.get("probe_width"), r.get("rerank")): r
+          for r in artifact["runs"]}
+    probed = by[(f"probed_quota{args.quota}", "adaptive", None)]
+    rerank = by[(f"probed_quota{args.quota}_rerank{eval_recall.RERANK_NB}",
+                 "adaptive", "fused_device")]
+    for k in eval_recall.KS:
+        if rerank[f"recall@{k}"] < probed[f"recall@{k}"]:
+            raise AssertionError(f"tools: eval_recall rerank recall@{k} "
+                                 f"{rerank[f'recall@{k}']} < probed "
+                                 f"{probed[f'recall@{k}']}")
+    data, nns = state["data"], state["nns"]
+    t0 = time.perf_counter()
+    rerank_swaps = rerank_replay(state["model"], state["coarse"],
+                                 state["fine"], data.X, data.queries,
+                                 args.quota, cfg["rerank_width"], "float32")
+    rerank_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = eval_recall.train_model(data.train, cfg["exact_V"], args.M, dev)
+    coarse, fine = eval_recall.encode(model, data)
+    row, exact_ids = eval_recall.exhaustive_exact(model, coarse, fine,
+                                                  data.queries, nns)
+    exact_s = time.perf_counter() - t0
+    row["V"] = cfg["exact_V"]
+    artifact["runs"].append(row)
+    with open(os.path.join(work, "eval_recall.json"), "w") as f:
+        json.dump(artifact, f, indent=1)
+    r = cfg["replay"]
+    swaps = exhaustive_replay(model, coarse, fine, data.queries[:r],
+                              exact_ids[:r])
+    for run in artifact["runs"]:
+        log(f"tools: eval_recall {run['method']} (probe "
+            f"{run.get('probe_width', '-')}"
+            f"{', V=' + str(run['V']) if 'V' in run else ''}): recall@1 "
+            f"{run['recall@1']} @10 {run['recall@10']} @100 "
+            f"{run['recall@100']}, {run['ms_per_query_e2e_host']} ms/query "
+            f"(host clock) [{card}]")
+    log(f"tools: eval_recall (n={args.n} dim={args.dim} V={args.V} "
+        f"queries={args.queries} quota={args.quota}) in {run_s:.1f}s; "
+        f"rerank recall@k >= probed at k = 1, 10, 100; at probe width "
+        f"{cfg['rerank_width']} the fused rerank's top-{eval_recall.LIMIT} "
+        f"of {args.queries} queries equals a float64 re-sort of the probed "
+        f"top-{eval_recall.RERANK_NB} ({rerank_swaps} rounding-tie swaps, "
+        f"{rerank_s:.1f}s); the exhaustive stage (V={cfg['exact_V']}) in "
+        f"{exact_s:.1f}s, {r} of its queries equal to the plain kernels' "
+        f"replay ({swaps} rounding-tie swaps)")
+    return dict(runs=artifact["runs"], run_s=run_s, exact_s=exact_s,
+                replay_swaps=swaps, rerank_swaps=rerank_swaps)
+
+
+def tools_realfeat(dev, card, work, cfg):
+    """``eval_recall_realfeat`` with ``realfeat_args``: the raw rerank
+    reorders the probed top-1000 exactly, so its recall@k is at least the
+    probed one's."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall_realfeat
+
+    t0 = time.perf_counter()
+    artifact = eval_recall_realfeat.main(list(cfg["realfeat_args"]) + [
+        "--out", os.path.join(work, "realfeat.json")])
+    run_s = time.perf_counter() - t0
+    runs = artifact["runs"]
+    probed, raw = runs[0], runs[2]
+    for k in (1, 10, 100):
+        if raw[f"recall@{k}"] < probed[f"recall@{k}"]:
+            raise AssertionError(f"tools: realfeat raw rerank recall@{k} "
+                                 "below the probed search's")
+    for run in runs:
+        log(f"tools: eval_recall_realfeat {run['method']}: recall@1 "
+            f"{run['recall@1']} @10 {run['recall@10']} @100 "
+            f"{run['recall@100']} [{card}]")
+    log(f"tools: eval_recall_realfeat n={artifact['config']['n']} "
+        f"V={artifact['config']['V']} in {run_s:.1f}s [{card}]")
+    return dict(runs=runs, run_s=run_s)
+
+
+def tools_face(dev, card, work, cfg):
+    """``train_face_template --synth`` to a template in ``work``; the file
+    round-trips bit-equal and the detector loaded from it finds the
+    trained one's boxes; then ``eval_face_detector`` on it."""
+    from columbiaimagesearch_tpu_torch.models import (
+        eval_face_detector,
+        train_face_template,
+    )
+    from columbiaimagesearch_tpu_torch.models.face_synth import make_scene
+
+    path = os.path.join(work, "face_template.npz")
+    t0 = time.perf_counter()
+    det, out = train_face_template.main(["--synth", str(cfg["synth"]),
+                                         "--out", path])
+    train_s = time.perf_counter() - t0
+    loaded = eval_face_detector.load_detector(out, dev)
+    with np.load(out) as z:
+        same = (np.array_equal(z["template"], det.template.cpu().numpy())
+                and z["template"].dtype == np.float32
+                and float(z["bias"]) == float(np.float32(det.bias)))
+    if not same or not torch.equal(loaded.template, det.template):
+        raise AssertionError("tools: the saved template does not round-trip "
+                             "bit-equal")
+    loaded.threshold = det.threshold = 0.5
+    for k in range(4):
+        img, _ = make_scene(1000 + k, range(cfg["synth"], cfg["synth"] + 40))
+        a, b = det.run(img), loaded.run(img)
+        if not (np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
+                and np.array_equal(np.asarray(a[1]), np.asarray(b[1]))):
+            raise AssertionError(f"tools: scene {k}: the loaded template "
+                                 "finds other boxes than the trained one")
+    t0 = time.perf_counter()
+    res = eval_face_detector.main([
+        "--template", out, "--train-n", str(cfg["synth"]), "--scenes",
+        str(cfg["scenes"]), "--out", os.path.join(work, "face_eval.json")])
+    eval_s = time.perf_counter() - t0
+    log(f"tools: train_face_template --synth {cfg['synth']} in "
+        f"{train_s:.1f}s (bias {det.bias:+.4f}); the template round-trips "
+        f"bit-equal and its loaded detector finds the same boxes on 4 "
+        f"scenes; eval_face_detector on {cfg['scenes']} scenes in "
+        f"{eval_s:.1f}s: AP {res['value']} (the committed artifact: "
+        f"{cfg['ref_ap']}, a reference, not a gate), real-photo IoU "
+        f"{res['extra']['real_photo_best_iou']} [{card}]")
+    return dict(train_s=train_s, eval_s=eval_s, ap=res["value"],
+                real_photo_iou=res["extra"]["real_photo_best_iou"])
+
+
+def phase_tools(dev, card, cfg=None):
+    """The operator tools on the card (see TOOLS), under build/tools/
+    (deleted at the end). Returns the numbers and each kernel's launches
+    in the phase."""
+    import shutil
+
+    from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
+        adc_scan_all,
+    )
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+    from columbiaimagesearch_tpu_torch.models import drop_weights
+
+    cfg = dict(TOOLS, **(cfg or {}))
+    work = os.path.join(ROOT, "build", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    adc_scan_all.launches = 0                  # counts this phase only
+    build_luts.launches = 0
+    numbers = {}
+    try:
+        for name, step in (("face_build", tools_face_build),
+                           ("release_build", tools_release_build),
+                           ("recall", tools_recall),
+                           ("realfeat", tools_realfeat),
+                           ("face", tools_face)):
+            t0 = time.perf_counter()
+            numbers[name] = step(dev, card, work, cfg)
+            numbers[name]["s"] = round(time.perf_counter() - t0, 2)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drop_weights.main(["--dry-run"] + (["--cpu"] if dev.type == "cpu"
+                                           else []))
+        numbers["drop_weights_s"] = round(time.perf_counter() - t0, 2)
+        log(f"tools: drop_weights --dry-run passed every gate in "
+            f"{numbers['drop_weights_s']:.1f}s [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches)
+    log(f"tools: lut_build launches={launches['lut']}, adc_scan launches="
+        f"{launches['adc']}")
+    if dev.type == "cuda" and (launches["lut"] <= 0 or launches["adc"] <= 0):
+        raise AssertionError("the tools phase did not launch both kernels")
+    return numbers, launches
+
+
+class PhaseClock:
+    """Host seconds of each phase of ``main``, logged as each ends."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._t, 2)
+        self._t = now
+        log(f"phase {name}: {self.seconds[name]:.2f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4491,45 +4905,75 @@ def main():
         f"{torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     log(card)
+    clock = PhaseClock()
     phase_build()
+    clock.lap("build")
     worst, luts = phase_kernel_check(dev, card, cfg["seed"])
+    clock.lap("kernel_check")
     scan_worst, _ = phase_scan_check(dev, card, cfg["seed"])
+    clock.lap("scan_check")
     trained = phase_train(dev, card)
+    clock.lap("train")
     plain = phase_train_plain(dev, card, trained)
+    clock.lap("train_plain")
     del trained["face"]["train"], trained["heldout"]
     train_index = phase_train_index(dev, card)
+    clock.lap("train_index")
     torch.cuda.empty_cache()
     state, launches = phase_main_path(dev, cfg, card, trained)
+    clock.lap("main_path")
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
     wide, wide_launches = phase_wide(dev, cfg, state, card)
+    clock.lap("wide")
     torch.cuda.empty_cache()
     model_io = phase_model_io(dev, card, trained, state)
+    clock.lap("model_io")
     recall = phase_recall(dev, cfg, state, card, trained)
+    clock.lap("recall")
     phase_query_parity(dev, cfg, state)
+    clock.lap("query_parity")
     phase_numbers(dev, cfg, state, card)
+    clock.lap("numbers")
     phase_memory(dev, cfg, state, card)
+    clock.lap("memory")
     phase_profile(dev, cfg, state, card)
+    clock.lap("profile")
     phase_pca(dev, cfg, state, card, trained)
+    clock.lap("pca")
     sharded, sharded_launches = phase_sharded(dev, cfg, state, card)
+    clock.lap("sharded")
     del state
     torch.cuda.empty_cache()
     phase_fc7(dev, card)
+    clock.lap("fc7")
     decode = phase_decode(dev, card)
+    clock.lap("decode")
     torch.cuda.empty_cache()
     serving = phase_serving(dev, card, trained)
+    clock.lap("serving")
     torch.cuda.empty_cache()
     codestore = phase_codestore(dev, card, trained)
+    clock.lap("codestore")
     codestore["refresh_sort_ms"] = phase_refresh_sort(dev, card)
+    clock.lap("refresh_sort")
     torch.cuda.empty_cache()
     ex = phase_exhaustive(dev, card, trained["face"])
+    clock.lap("exhaustive")
     index = ex.pop("index")
     torch.cuda.empty_cache()
     face_probe, face_launches = phase_face_probe(dev, card, index)
+    clock.lap("face_probe")
     phase_face_models(dev, card)
+    clock.lap("face_models")
     face_serving = phase_face_serving(dev, card, index)
+    clock.lap("face_serving")
     del index
     face_train = phase_face_train(dev, card)
+    clock.lap("face_train")
+    torch.cuda.empty_cache()
+    tools, tools_launches = phase_tools(dev, card)
+    clock.lap("tools")
     http, http_launches = serving["sharded_http"]
     sharded["http"] = http
     sharded_launches += http_launches
@@ -4539,8 +4983,9 @@ def main():
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
         f"the face probed path + {face_serving['launches']} on the face "
-        f"serving path; adc_scan {ex['adc_launches']} on the exhaustive "
-        f"path")
+        f"serving path + {tools_launches['lut']} on the tools path; "
+        f"adc_scan {ex['adc_launches']} on the exhaustive path + "
+        f"{tools_launches['adc']} on the tools path")
     worst = max([worst] + [r["max_abs"] for k, r in face_probe.items()
                            if k.startswith("lut")])
     head, face = luts["headline NQ=100"], ex["face"][8]
@@ -4554,8 +4999,10 @@ def main():
         power_limit=power.strip())}))
     log(json.dumps({"sharded": dict(sharded, card=name.strip(),
                                     power_limit=power.strip())}))
+    log(json.dumps({"phase_s": clock.seconds}))
     for key, numbers in (("wide", wide), ("model_io", model_io),
-                         ("decode", decode), ("face_train", face_train)):
+                         ("decode", decode), ("face_train", face_train),
+                         ("tools", tools)):
         log(json.dumps({key: dict(numbers, card=name.strip(),
                                   power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
@@ -4564,7 +5011,7 @@ def main():
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
         "launches": launches + wide_launches + sharded_launches
         + serving["launches"]["lut"] + ex["lut_launches"] + face_launches
-        + face_serving["launches"],
+        + face_serving["launches"] + tools_launches["lut"],
         "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4572,7 +5019,7 @@ def main():
         "name": "adc_scan", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/adc_scan.cu",
         "replaces": "columbiaimagesearch_tpu/index/pallas_adc.py:35",
-        "launches": ex["adc_launches"],
+        "launches": ex["adc_launches"] + tools_launches["adc"],
         "max_abs_err": max(scan_worst, ex["max_abs"]), "ms": face["ms"],
         "plain_ms": face["plain_ms"], "bound_ms": face["bound_ms"],
         "bound_by": face["bound_by"], "library_ms": face["library_ms"]}]}))

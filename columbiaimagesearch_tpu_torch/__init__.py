@@ -62,6 +62,17 @@ Layout (JAX counterpart in brackets):
   ``api/`` [the same names]: the serving stack; ``pipeline/`` [pipeline/,
   and scripts/run_processing.py, run_images_pusher.py, bus_printer.py as
   ``python -m`` entry points]: ingest.
+- The operator tools, ``python -m`` entry points beside their layers
+  (each runs on the first card unless given ``--cpu``):
+  ``common/generate_conf.py`` [scripts/generate_conf.py],
+  ``index/build_index.py`` [scripts/build_index.py],
+  ``index/eval_recall.py`` [scripts/eval_recall.py],
+  ``index/eval_recall_realfeat.py`` [scripts/eval_recall_realfeat.py],
+  ``models/train_face_template.py`` [scripts/train_face_template.py],
+  ``models/eval_face_detector.py`` [scripts/eval_face_detector.py],
+  ``models/eval_face_real_composite.py``
+  [scripts/eval_face_real_composite.py],
+  ``models/drop_weights.py`` [scripts/drop_weights.py].
 """
 
 from columbiaimagesearch_tpu_torch import device  # noqa: F401  (TF32 off)

@@ -233,6 +233,14 @@ class LOPQModel:
                        device=dev, generator=generator)
         return cls(*_stacked(params), device=dev)
 
+    def get_split_parameters(self, split):
+        """``(C, R, mu, subs)`` of coarse split ``split`` (0 or 1) as
+        tensors on the model's device: [V, Dh], [V, Dh, Dh], [V, Dh] and
+        [F, S, Dsub] (model.py:191-195, where ``subs`` is a list of F
+        codebooks)."""
+        return (self.Cs[split], self.Rs[split], self.mus[split],
+                self.subs[split])
+
     # --------------------------------------------------------------- encode
 
     def predict_batch(self, X):

@@ -21,7 +21,8 @@ sees the zero pad, and windows that touch the pad are masked.
 
 The template loads from ``$FACE_TEMPLATE``, else from the port's own
 ``models/weights/face_template.npz`` (a copy of the JAX package's trained
-artifact); :meth:`ConvHOGFaceDetector.train` fits one on the device.
+artifact); :meth:`ConvHOGFaceDetector.train` fits one on the device and
+:meth:`ConvHOGFaceDetector.save_template` writes it there.
 """
 
 import os
@@ -125,6 +126,18 @@ class ConvHOGFaceDetector:
             with np.load(path) as z:
                 return z["template"], float(z["bias"])
         return None
+
+    def save_template(self, path=None):
+        """Write ``template`` and ``bias`` to ``path`` (default:
+        :func:`default_template_path`, where :meth:`_load_default` reads
+        them) as the JAX package's npz (face_detector.py:120-127): the
+        same keys, a float32 template and a float32 bias. Returns the
+        path."""
+        path = path or default_template_path()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, template=self.template.detach().cpu().numpy(),
+                 bias=np.float32(self.bias))
+        return path
 
     def train(self, pos_imgs, neg_imgs, steps=300, lr=0.05, seed=0,
               neg_weight=1.0):

@@ -1,5 +1,6 @@
 """TexMex .fvecs/.ivecs/.bvecs dataset I/O (http://corpus-texmex.irisa.fr/);
-copy of columbiaimagesearch_tpu/utils/xvecs.py:1-44 (numpy only).
+copy of columbiaimagesearch_tpu/utils/xvecs.py:1-44 (numpy only), with
+``save_xvecs`` writing all rows at once.
 
 Same binary format as the reference's helpers
 (reference: lopq/lopq/utils.py:64-131 ``load_xvecs``/``save_xvecs``) but
@@ -33,12 +34,14 @@ def load_xvecs(filename, base_type="f", max_num=None):
 
 
 def save_xvecs(data, filename, base_type="f"):
-    """Save rows of ``data`` in .xvecs format."""
-    dtype, _ = _TYPES[base_type]
+    """Save rows of ``data`` in .xvecs format: each row a uint32 ``D``
+    and its ``D`` values, the bytes of utils/xvecs.py:35-44 written in one
+    call (the copy's per-row writes take seconds at 500,000 rows)."""
+    dtype, size = _TYPES[base_type]
     data = np.atleast_2d(np.asarray(data))
     N, D = data.shape
-    dim_col = np.full((N, 1), D, dtype=np.uint32)
-    with open(filename, "wb") as f:
-        for i in range(N):
-            f.write(dim_col[i].tobytes())
-            f.write(data[i].astype(dtype).tobytes())
+    out = np.empty((N, 4 + D * size), dtype=np.uint8)
+    out[:, :4] = np.frombuffer(np.uint32(D).tobytes(), dtype=np.uint8)
+    out[:, 4:] = np.ascontiguousarray(data.astype(dtype)).view(
+        np.uint8).reshape(N, D * size)
+    out.tofile(filename)

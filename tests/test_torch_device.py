@@ -111,3 +111,58 @@ def test_new_entry_points_raise_without_a_card(no_card):
             call()
     assert preprocess_batch([img], default_mean_image(),
                             device="cpu").device.type == "cpu"
+
+
+def test_operator_tools_raise_without_a_card(no_card, tmp_path, monkeypatch):
+    """Each operator tool's entry point takes the first card and raises at
+    once without one; ``--cpu`` is the request for the CPU. Writing a conf
+    computes nothing: ``generate_conf`` needs no card and has no
+    ``--cpu``, as the JAX script has none."""
+    from columbiaimagesearch_tpu_torch.common import generate_conf
+    from columbiaimagesearch_tpu_torch.index import (
+        build_index,
+        eval_recall,
+        eval_recall_realfeat,
+    )
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+    from columbiaimagesearch_tpu_torch.models import (
+        drop_weights,
+        eval_face_detector,
+        eval_face_real_composite,
+        train_face_template,
+    )
+
+    def must_not_run(*a, **kw):
+        raise AssertionError("work started without a device")
+
+    monkeypatch.setattr(LOPQModel, "fit", must_not_run)
+    monkeypatch.setattr(train_face_template, "synth_training_set",
+                        must_not_run)
+    monkeypatch.setattr(eval_recall, "SynthData", must_not_run)
+    monkeypatch.setattr(eval_recall_realfeat, "extract_features",
+                        must_not_run)
+    monkeypatch.setattr(drop_weights, "dry_run", must_not_run)
+    monkeypatch.setattr(eval_face_detector, "load_detector", must_not_run)
+    monkeypatch.setattr(eval_face_real_composite, "load_detector",
+                        must_not_run)
+    feats = tmp_path / "f.npy"
+    np.save(feats, np.zeros((10, 8), np.float32))
+    calls = [
+        lambda a: build_index.main(
+            ["--features", str(feats), "--out", str(tmp_path / "o")] + a),
+        lambda a: eval_recall.main(["--n", "100"] + a),
+        lambda a: eval_recall_realfeat.main(
+            ["--n", "100", "--out", str(tmp_path / "r.json")] + a),
+        lambda a: train_face_template.main(["--synth", "2"] + a),
+        lambda a: eval_face_detector.main(["--scenes", "1"] + a),
+        lambda a: eval_face_real_composite.main(["--pos-scenes", "1"] + a),
+        lambda a: drop_weights.main(["--dry-run"] + a),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call([])
+        with pytest.raises(AssertionError, match="without a device"):
+            call(["--cpu"])
+    out = generate_conf.main(["searcher", "-o", str(tmp_path / "c.json")])
+    with open(out) as f:
+        assert json.load(f) == generate_conf.generate_conf_searcher()

@@ -9,8 +9,9 @@ detector template and the landmark net a few steps, and never
 loads ``jax``, ``flax``, the JAX package or pandas — nor PIL, which only
 the image routes import, lazily. Then one checker + processor pass of the
 ingest pipeline over three images on the CPU, the device-decode route on
-three JPEGs, ``chip_smoke`` imported, and a searcher backed by the native
-code store, still without JAX. ``chip_smoke.py`` imports nothing of JAX
+three JPEGs, ``chip_smoke`` imported, a searcher backed by the native
+code store, and the operator tools imported, with ``build_index`` and
+``generate_conf`` run on the CPU, still without JAX or ``scripts``. ``chip_smoke.py`` imports nothing of JAX
 in any function either (its source is parsed)."""
 
 import os
@@ -183,8 +184,28 @@ cs.add_data(X[:100])
 cs._codestore.close()
 assert searcher.LOPQSearcherTorch(
     m, codestore_path=os.path.join(work, "c.cs")).get_nb_indexed() == 100
+from columbiaimagesearch_tpu_torch.common import generate_conf
+from columbiaimagesearch_tpu_torch.index import (build_index, eval_recall,
+                                                  eval_recall_realfeat)
+from columbiaimagesearch_tpu_torch.models import (drop_weights,
+                                                   eval_face_detector,
+                                                   eval_face_real_composite,
+                                                   train_face_template)
+np.save(os.path.join(work, "f.npy"), X)
+import contextlib
+with contextlib.redirect_stdout(sys.stderr):   # its progress lines
+    built = build_index.main(["--features", os.path.join(work, "f.npy"),
+                              "--out", os.path.join(work, "bi"), "--V", "4",
+                              "--M", "4", "--subq", "16", "--cpu"])
+bm = store.LocalStorer(os.path.join(work, "bi", "storer")).load(
+    built["model_str"])
+bs = searcher.LOPQSearcherTorch(bm, codestore_path=built["codes"])
+assert bs.get_nb_indexed() == 500 and bs.search(X[3], quota=50)[0]
+os.environ["LOPQ_V"] = "256"
+conf = generate_conf.main(["searcher", "-o", os.path.join(work, "c.json")])
+assert '"SEARCHLOPQ_lopq_V": "256"' in open(conf).read()
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
-       or k.split(".")[0] in ("flax", "pandas")
+       or k.split(".")[0] in ("flax", "pandas", "scripts")
        or k == "columbiaimagesearch_tpu"
        or k.startswith("columbiaimagesearch_tpu.")]
 assert not bad, bad
