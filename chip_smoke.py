@@ -1186,10 +1186,13 @@ def phase_main_path(dev, cfg, card, trained):
         f"time) in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
-                               rows, chunk=8192)
+                               rows, chunk=ENCODE_CHUNK)
     sync()
-    log(f"main path: lopq_encode {cfg['rows']} rows in "
-        f"{time.perf_counter() - t0:.1f}s [{card}]")
+    plain_s = time.perf_counter() - t0
+    log(f"main path: lopq_encode {cfg['rows']} rows in {plain_s:.1f}s "
+        f"[{card}]")
+    blocked = blocked_encode_check(dev, cfg, card, model, rows, coarse, fine,
+                                   plain_s)
     t0 = time.perf_counter()
     searcher = LOPQSearcherTorch(model, capacity_hint=cfg["rows"])
     searcher.add_codes((coarse.cpu().numpy(),
@@ -1264,7 +1267,107 @@ def phase_main_path(dev, cfg, card, trained):
     log(f"main path: checks passed: {lim} valid ids per result, ascending "
         f"distances, {len(self_rows) + 1} indexed rows returned first at "
         f"exact distance 0 under rerank")
-    return dict(searcher=searcher, waves=waves, draw=draw, g=g), launches
+    return dict(searcher=searcher, waves=waves, draw=draw, g=g,
+                blocked_encode=blocked), launches
+
+
+#: rows a coarse-assignment step of both encoders on the main path: the
+#: same product shapes, so their coarse codes must be equal on every row
+ENCODE_CHUNK = 8192
+
+
+def blocked_encode_check(dev, cfg, card, model, rows, coarse, fine, plain_s):
+    """The main path's rows encoded again by ``lopq_encode_blocked`` (with
+    ``blocks_needed`` blocks), held to ``lopq_encode``'s codes: coarse
+    codes equal on every row, and each differing subcode a float64
+    near-tie (``blocked_encode_ties``). Returns the ``blocked_encode``
+    line's numbers: both encoders' seconds, the coarse step's alone, the
+    rows that differ and the ties among them, the peak bytes above the
+    resident set."""
+    from columbiaimagesearch_tpu_torch.index.encode import (
+        blocks_needed,
+        coarse_assign,
+        lopq_encode_blocked,
+    )
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    N, V = rows.shape[0], cfg["V"]
+    sync()
+    if cuda:
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    bc, bf = lopq_encode_blocked(model.Cs, model.Rs, model.mus, model.subs,
+                                 rows, V, blocks_needed(N, V),
+                                 chunk=ENCODE_CHUNK)
+    sync()
+    blocked_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - resident) if cuda else None
+    if not torch.equal(bc, coarse):
+        bad = int((bc != coarse).any(dim=1).sum())
+        raise AssertionError(f"blocked encode: coarse codes differ from "
+                             f"lopq_encode's on {bad} rows")
+    differ = (bf != fine).any(dim=1).nonzero()[:, 0]
+    ties = blocked_encode_ties(model, rows, coarse, fine, bf, differ)
+    del bc, bf
+    # where the time goes: the coarse step, which both encoders share, alone
+    Dh = model.Cs.shape[2]
+    c2 = (model.Cs * model.Cs).sum(dim=2)
+    t0 = time.perf_counter()
+    for s in range(2):
+        coarse_assign(rows[:, s * Dh:(s + 1) * Dh], model.Cs[s], c2[s],
+                      ENCODE_CHUNK)
+    sync()
+    coarse_s = time.perf_counter() - t0
+    out = dict(rows=N, V=V, n_blocks=blocks_needed(N, V),
+               lopq_encode_s=plain_s, blocked_s=blocked_s,
+               coarse_step_s=coarse_s, rows_differ=int(differ.shape[0]),
+               ties=ties, peak_above_resident_bytes=peak)
+    log(f"main path: lopq_encode_blocked {N} rows in {blocked_s:.3f}s "
+        f"(lopq_encode {plain_s:.3f}s; the coarse step alone "
+        f"{coarse_s:.3f}s), peak {peak} bytes above the "
+        f"resident set; coarse codes equal on every row, fine codes differ "
+        f"on {out['rows_differ']} rows, {ties} of them float64 near-ties "
+        f"[{card}]")
+    return out
+
+
+def blocked_encode_ties(model, rows, coarse, fine_a, fine_b, differ,
+                        chunk=2048):
+    """Rows ``differ`` re-scored on the host in float64: for each
+    subvector whose codes differ, the distances of the projected residual
+    ``R[a] (x - C[a] - mu[a])`` to the two subcodewords must agree within
+    SELECT_TIE_RTOL (relative to max(1, d), as ``plain_selection_check``).
+    Returns the rows that are near-ties (all of ``differ``); raises on any
+    other."""
+    F, Dsub = model.subs.shape[1], model.subs.shape[3]
+    Dh = model.Cs.shape[2]
+    subs = model.subs.double().cpu().numpy()
+    for lo in range(0, differ.shape[0], chunk):
+        ii = differ[lo:lo + chunk]
+        x = rows[ii].double().cpu().numpy()
+        for s in range(2):
+            a = coarse[ii, s].long()
+            R = model.Rs[s][a].double().cpu().numpy()
+            r = (x[:, s * Dh:(s + 1) * Dh]
+                 - model.Cs[s][a].double().cpu().numpy()
+                 - model.mus[s][a].double().cpu().numpy())
+            pr = np.einsum("nij,nj->ni", R, r).reshape(-1, F, Dsub)
+            ga = fine_a[ii, s * F:(s + 1) * F].long().cpu().numpy()
+            gb = fine_b[ii, s * F:(s + 1) * F].long().cpu().numpy()
+            f = np.arange(F)[None, :]
+            da = ((pr - subs[s][f, ga]) ** 2).sum(-1)
+            db = ((pr - subs[s][f, gb]) ** 2).sum(-1)
+            far = (ga != gb) & (np.abs(da - db) > SELECT_TIE_RTOL
+                                * np.maximum(1.0, np.minimum(da, db)))
+            if far.any():
+                n, k = map(int, np.argwhere(far)[0])
+                raise AssertionError(
+                    f"blocked encode: row {int(ii[n])} half {s} subvector "
+                    f"{k}: code {gb[n, k]} at {db[n, k]} where lopq_encode "
+                    f"has {ga[n, k]} at {da[n, k]} (float64)")
+    return int(differ.shape[0])
 
 
 def phase_recall(dev, cfg, state, card, trained):
@@ -4922,6 +5025,7 @@ def main():
     torch.cuda.empty_cache()
     state, launches = phase_main_path(dev, cfg, card, trained)
     clock.lap("main_path")
+    blocked = state.pop("blocked_encode")
     if launches <= 0:
         raise AssertionError("the main path never launched lut_build")
     wide, wide_launches = phase_wide(dev, cfg, state, card)
@@ -5005,6 +5109,8 @@ def main():
                          ("tools", tools)):
         log(json.dumps({key: dict(numbers, card=name.strip(),
                                   power_limit=power.strip())}))
+    log(json.dumps({"blocked_encode": dict(blocked, card=name.strip(),
+                                           power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",

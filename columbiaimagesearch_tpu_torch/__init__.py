@@ -26,14 +26,20 @@ Layout (JAX counterpart in brackets):
 
 - ``device.py``: fp32 precision settings (TF32 off) and device memory.
 - ``utils/chunking.py``, ``utils/codes.py``, ``utils/xvecs.py``
-  [utils/chunking.py, utils/codes.py, utils/xvecs.py]
+  [utils/chunking.py, utils/codes.py, utils/xvecs.py]; ``utils/codes.py``
+  ``dedup_first_mask`` [utils/codes.py:20], on ``IncrementalDedup``.
 - ``ops/kmeans.py``, ``ops/pca.py``, ``ops/rotations.py``,
   ``ops/eigen_alloc.py`` [the same names]: training.
 - ``index/model.py`` [index/model.py]: ``train``, ``LOPQModel`` and
   ``LOPQModelPCA`` (parameter containers, ``fit`` classmethods, npz, .mat
   and proto I/O); ``index/proto.py``, ``index/protos/`` [the same names].
 - ``index/eval.py`` [index/eval.py]: recall, distortion, cell balance.
-- ``index/encode.py`` [index/tpu_encode.py]: ``lopq_encode``.
+- ``index/encode.py`` [index/tpu_encode.py]: ``lopq_encode``;
+  [index/tpu_encode_blocked.py]: ``lopq_encode_blocked`` and
+  ``blocks_needed``, the cluster-blocked encoder (one rotation a 256-row
+  block). Deliberate difference: given fewer blocks than its layout
+  needs it raises ``ValueError``, where JAX drops rows and returns wrong
+  codes.
 - ``index/csr.py`` [index/csr.py]: CSR build and in-place appends (the
   dense offsets table, or in wide-V mode the sorted cell ids only).
 - ``index/lut.py`` [index/tpu_query.py ``build_luts_pallas``]: the LUT

@@ -5,8 +5,10 @@
 - The covariance accumulators take one path for every V (the JAX package
   splits at V = 32 between V masked matmuls and a blocked layout, a TPU
   choice): rows are sorted by cluster once, each cluster's run is padded
-  to a multiple of 128 rows, every 128-row block's Gram is one batched
-  ``bmm``, and the block Grams are ``index_add_``-ed into ``[V, D, D]``.
+  to a multiple of 128 rows (``blocked_layout``, which
+  ``index/encode.py`` ``lopq_encode_blocked`` shares at 256 rows), every
+  128-row block's Gram is one batched ``bmm``, and the block Grams are
+  ``index_add_``-ed into ``[V, D, D]``.
   Per-row outer products would be ``N * D^2`` scattered adds (~33 G a
   half at 2,000,000 rows and D = 128).
 - The eigendecompositions are one batched ``torch.linalg.eigh`` on the
@@ -51,26 +53,43 @@ def _streams(x, dev):
     return not on_dev and _numel(x) > STREAMING_THRESHOLD_ELEMENTS
 
 
-def _accumulate(r, a, V: int):
-    """Covariance accumulators of residuals ``r`` [N, D] assigned ``a``
-    [N]: (A [V, D, D] outer-product sums, mu [V, D] sums, count [V])."""
-    N, D = r.shape
-    dev = r.device
+def blocked_layout(a, V: int, blk: int):
+    """The cluster-blocked layout of assignments ``a`` [N] (int64): rows
+    sorted by cluster (stable), each cluster's run padded to whole
+    ``blk``-row blocks, clusters in order.
+
+    :returns: (counts [V] rows a cluster, order [N] the input row at each
+        sorted position, ppos [N] the padded position of each sorted row,
+        bcluster [n_blocks] the cluster of each block); one host read a
+        call (the block count)
+    """
+    N = a.shape[0]
+    dev = a.device
     counts = torch.zeros(V, dtype=torch.int64, device=dev).index_add_(
         0, a, torch.ones_like(a))
-    nblk = (counts + _BLK - 1) // _BLK
-    pstart = (torch.cumsum(nblk, 0) - nblk) * _BLK
+    nblk = (counts + blk - 1) // blk
+    pstart = (torch.cumsum(nblk, 0) - nblk) * blk
     cstart = torch.cumsum(counts, 0) - counts
     order = torch.argsort(a, stable=True)
     a_sorted = a[order]
     ppos = (pstart[a_sorted] + torch.arange(N, device=dev)
             - cstart[a_sorted])
-    n_blocks = int(nblk.sum())                 # one host read a call
+    n_blocks = int(nblk.sum())
+    bcluster = torch.repeat_interleave(torch.arange(V, device=dev), nblk,
+                                       output_size=n_blocks)
+    return counts, order, ppos, bcluster
+
+
+def _accumulate(r, a, V: int):
+    """Covariance accumulators of residuals ``r`` [N, D] assigned ``a``
+    [N]: (A [V, D, D] outer-product sums, mu [V, D] sums, count [V])."""
+    D = r.shape[1]
+    dev = r.device
+    counts, order, ppos, bcluster = blocked_layout(a, V, _BLK)
+    n_blocks = bcluster.shape[0]
     xb = torch.zeros((n_blocks * _BLK, D), dtype=torch.float32,
                      device=dev).index_copy_(0, ppos, r[order])
     xb = xb.view(n_blocks, _BLK, D)
-    bcluster = torch.repeat_interleave(torch.arange(V, device=dev), nblk,
-                                       output_size=n_blocks)
     A = torch.zeros((V, D, D), dtype=torch.float32, device=dev).index_add_(
         0, bcluster, torch.bmm(xb.transpose(1, 2), xb))
     mu = torch.zeros((V, D), dtype=torch.float32, device=dev).index_add_(

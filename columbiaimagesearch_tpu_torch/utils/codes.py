@@ -1,5 +1,6 @@
 """Code dtype conventions and insertion dedup
-(copy of columbiaimagesearch_tpu/utils/codes.py:12-17, 56-138).
+(copy of columbiaimagesearch_tpu/utils/codes.py:12-17, 56-138;
+``dedup_first_mask`` ports codes.py:20-53 onto ``IncrementalDedup``).
 
 Cluster-id dtypes follow the codebook cardinality at the host API
 boundary (reference: lopq/lopq/utils.py:33-53): uint8 for <=256 clusters,
@@ -78,10 +79,10 @@ class IncrementalDedup:
         self._bulk_uniques = uniques
         return True
 
-    def filter_new(self, cells_new, ids_new):
-        """Keep-mask over the new rows: first occurrence of a never-seen
-        (cell, id)."""
-        n = len(cells_new)
+    def intern(self, ids_new):
+        """Dense int64 ids of ``ids_new``, numbered on from the ids seen
+        before."""
+        n = len(ids_new)
         idx = np.empty(n, dtype=np.int64)
         bulk = (not self._id_index and self._bulk_uniques is None
                 and n > self.BULK_MIN_ROWS
@@ -95,6 +96,13 @@ class IncrementalDedup:
                     v = len(d)
                     d[x] = v
                 idx[i] = v
+        return idx
+
+    def filter_new(self, cells_new, ids_new):
+        """Keep-mask over the new rows: first occurrence of a never-seen
+        (cell, id)."""
+        n = len(cells_new)
+        idx = self.intern(ids_new)
         keys = (np.asarray(cells_new, dtype=np.int64) << 34) | idx
         keep = np.zeros(n, dtype=bool)
         _, first = np.unique(keys, return_index=True)
@@ -107,3 +115,28 @@ class IncrementalDedup:
         self._keys = np.sort(new_keys if self._keys is None
                              else np.concatenate([self._keys, new_keys]))
         return keep
+
+
+def dedup_first_mask(cells, ids):
+    """Boolean keep-mask selecting the FIRST occurrence of each (cell, id)
+    (the reference's per-row duplicate check on insertion,
+    lopq/lopq/search.py:342-364). A fresh ``IncrementalDedup``'s
+    ``filter_new``; any hashable ids, mixed types included. Keys that
+    would overflow its packing (``cells >= 2**30``, or an id index
+    ``>= 2**34``: ids intern densely, so more than ``2**34`` rows) take a
+    two-column ``np.unique`` instead, as codes.py:44-47 does."""
+    n = len(cells)
+    if n == 0:
+        return np.ones(0, dtype=bool)
+    cells = np.asarray(cells, dtype=np.int64)
+    if not isinstance(ids, np.ndarray):     # a list of mixed types must
+        ids = ids_to_object_array(ids, n)   # not become one string array
+    dedup = IncrementalDedup()
+    if int(cells.max()) < (1 << 30) and n <= (1 << 34):
+        return dedup.filter_new(cells, ids)
+    idx = dedup.intern(ids)
+    _, first = np.unique(np.stack([cells, idx], axis=1), axis=0,
+                         return_index=True)
+    keep = np.zeros(n, dtype=bool)
+    keep[first] = True
+    return keep

@@ -2,7 +2,8 @@
 ``columbiaimagesearch_tpu_torch``, answers tiny CPU searches (probed, PCA,
 exhaustive, the raw-feature fast path, one ``SearcherLOPQ`` facade
 search, a 2-shard ``ShardedLOPQSearcher``, the host ``LOPQSearcher`` and a
-wide-V searcher), trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
+wide-V searcher), encodes with the cluster-blocked encoder and
+dedups with ``dedup_first_mask``, trains tiny ``LOPQModel`` and ``LOPQModelPCA`` models and
 evaluates one, writes and reads a ``.mat`` model, renders synthetic
 images, runs the face embedder and the detector's device half, trains the
 detector template and the landmark net a few steps, and never
@@ -134,6 +135,14 @@ work0 = os.environ["NOJAX_TMP"]
 m.export_mat(os.path.join(work0, "m.mat"))
 back = model.LOPQModel.load_mat(os.path.join(work0, "m.mat"), device="cpu")
 assert torch.equal(back.Rs, m.Rs)
+bc, bf = encode.lopq_encode_blocked(m.Cs, m.Rs, m.mus, m.subs,
+                                    torch.from_numpy(X), V,
+                                    encode.blocks_needed(len(X), V))
+pc, pf = m.predict_batch(X)
+assert (bc.numpy() == pc).all() and (bf.numpy() == pf).all()
+from columbiaimagesearch_tpu_torch.utils.codes import dedup_first_mask
+assert dedup_first_mask([1, 1, 2], ["a", "a", "a"]).tolist() == [
+    True, False, True]
 imgs = synthimg.make_render_batch(2, height=48, width=64, device="cpu")(
     torch.Generator().manual_seed(0))
 assert imgs.shape == (2, 48, 64, 3)
