@@ -199,14 +199,34 @@ V=256, M=8, S=256, D=128). Phases:
    --synth 120`` (the template round-trips bit-equal, the detector loaded
    from it finds the trained one's boxes), ``eval_face_detector`` on 20
    scenes (AP beside the committed 0.6997, not gated); and
-   ``drop_weights --dry-run``.
+   ``drop_weights --dry-run``;
+13. recall parity (RECALL_PARITY, RECALL_RUNS), on a model of its own:
+   (a) ``eval_recall.run`` at the config of the JAX package's
+   benchmarks/r05_recall_adversarial_10M_rerank.json (10,485,760 x 256
+   rows drawn on the host as the JAX script draws them, V=4096, M=8,
+   query noise 0.25, quotas 10,000 and 100,000, widths 64, 256 and
+   adaptive, the fused rerank in bfloat16); (b) the stages on 104,857,600
+   rows made on the card (``--stream-synth``) on (a)'s model, at the
+   config of r05_recall_100M.json; (c) 100 queries at noise 0.1 on (b)'s
+   index (r05_recall_100M_neardup.json). Each artifact row is matched by
+   method and probe width and held to its rule (within 0.10; within 3
+   sigma of the pooled recall; at least the JAX recall - 0.04), with the
+   widths' and quotas' orderings; a wave pinned to width 64 in (a) and
+   (b) equal to its replay with the plain LUT and a float64 re-scoring
+   of the codes, and in (a) the bfloat16 fused rerank equal to a float64
+   re-sort of the probed top-1,000; then 8,192 more rows into (b)'s
+   index, the refresh timed on the host and its sort path
+   (``append_and_build_csr``) on the card. Stage seconds, the seconds of
+   ``add_codes``' steps at 104,857,600 rows and the peak card memory are
+   printed; the artifacts go under build/recall_parity/.
 
 Before the ``kernels`` line, a ``{"train": {...}}`` line carries the stage
 seconds, the checks' numbers, the recalls, and the card's name and power
 limit, an ``{"ingest": {...}}`` line the pipeline's, the refresh's
 and the code store's numbers, and a ``{"sharded": {...}}`` line the
 sharded phases' numbers, and one line each for the wide, model I/O,
-decode, face training and tools phases. The last line is
+decode, face training and tools phases and a ``{"recall_parity": {...}}``
+line with each parity row. The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and exits non-zero
 before it. Run from the root of a checkout:
 
@@ -4766,39 +4786,38 @@ def exhaustive_replay(model, coarse, fine, queries, exact_ids):
     return swaps
 
 
-def rerank_replay(model, coarse, fine, X, queries, quota, width, dtype):
-    """The fused device rerank (``eval_recall.RERANK_NB``) at the pinned
-    probe width ``width`` held to a plain re-sort of the same searcher's
-    probed top-RERANK_NB by exact float64 L2 distances from the rows
-    ``X``: each query's distances within SELECT_TIE_RTOL and its ids by
-    plain_selection_check. Returns the tie swaps."""
+def rerank_replay(s, X, queries, quota, width, what):
+    """The fused device rerank (``eval_recall.RERANK_NB``) of searcher
+    ``s`` (its store holds the rows ``X``) at the pinned probe width
+    ``width`` held to a plain re-sort of the same searcher's probed
+    top-RERANK_NB by exact float64 L2 distances from the rows as the store
+    holds them (``X`` rounded to its dtype): each query's distances
+    within SELECT_TIE_RTOL and its ids by plain_selection_check. Returns
+    the tie swaps."""
     from columbiaimagesearch_tpu_torch.index import eval_recall
-    from columbiaimagesearch_tpu_torch.index.searcher import (
-        LOPQSearcherTorch,
-    )
 
-    s = LOPQSearcherTorch(model, rerank_dtype=dtype)
-    s.add_codes((coarse, fine), feats=X)
     s.probe_width = width
     kw = dict(quota=quota, with_codes=False)
     fused = s.search_batch(queries, limit=eval_recall.LIMIT, with_dists=True,
                            rerank_nb=eval_recall.RERANK_NB, **kw)
     probed = s.search_batch(queries, limit=eval_recall.RERANK_NB, **kw)
+    s.probe_width = None
+    store_dtype = s._dev["feats"].dtype         # packed by the searches
     swaps = 0
     for q, ((got, _), (cand, _)) in enumerate(zip(fused, probed)):
         rows = np.array([r.id for r in cand], np.int64)
-        d = np.sqrt(((X[rows].astype(np.float64)
-                      - queries[q].astype(np.float64)) ** 2).sum(axis=1))
+        held = torch.from_numpy(X[rows]).to(store_dtype).double().numpy()
+        d = np.sqrt(((held - queries[q].astype(np.float64)) ** 2).sum(axis=1))
         order = np.argsort(d, kind="stable")[:len(got)]
         dists = np.array([r.dist for r in got])
         if len(got) != min(eval_recall.LIMIT, len(rows)):
-            raise AssertionError(f"tools: fused rerank query {q}: "
+            raise AssertionError(f"{what}: fused rerank query {q}: "
                                  f"{len(got)} results")
         np.testing.assert_allclose(dists, d[order], rtol=SELECT_TIE_RTOL,
-                                   err_msg=f"tools: fused rerank query {q}")
+                                   err_msg=f"{what}: fused rerank query {q}")
         swaps += plain_selection_check([r.id for r in got], dists,
                                        rows[order], d[order],
-                                       f"tools: fused rerank query {q}")
+                                       f"{what}: fused rerank query {q}")
     return swaps
 
 
@@ -4807,6 +4826,9 @@ def tools_recall(dev, card, work, cfg):
     its exhaustive stage on a V=exact_V model of the same rows, and the
     replay of that stage through both kernels' plain versions."""
     from columbiaimagesearch_tpu_torch.index import eval_recall
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+    )
 
     t0 = time.perf_counter()
     args = eval_recall.parse_args(list(cfg["recall_args"]))
@@ -4824,9 +4846,11 @@ def tools_recall(dev, card, work, cfg):
                                  f"{probed[f'recall@{k}']}")
     data, nns = state["data"], state["nns"]
     t0 = time.perf_counter()
-    rerank_swaps = rerank_replay(state["model"], state["coarse"],
-                                 state["fine"], data.X, data.queries,
-                                 args.quota, cfg["rerank_width"], "float32")
+    s = LOPQSearcherTorch(state["model"], rerank_dtype="float32")
+    s.add_codes((state["coarse"], state["fine"]), feats=data.X)
+    rerank_swaps = rerank_replay(s, data.X, data.queries, args.quota,
+                                 cfg["rerank_width"], "tools")
+    del s
     rerank_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     model = eval_recall.train_model(data.train, cfg["exact_V"], args.M, dev)
@@ -4979,6 +5003,577 @@ def phase_tools(dev, card, cfg=None):
     return numbers, launches
 
 
+#: phase_recall_parity holds the port to the JAX package's committed
+#: recall artifacts, each row matched by method and probe width at
+#: k = 1, 10, 100 under the rule of its run: "abs" |port - JAX| <= bound
+#: (the same rows, queries and ground truth, another model); "sigma"
+#: |port - JAX| <= bound * sigma, sigma = sqrt(2 p (1 - p) / queries) at
+#: the pooled recall p (another draw of the same distribution); "floor"
+#: port >= JAX - bound. ``ordered``: within a quota width 256 is at least
+#: width 64 - ORDER_SLACK, and at a width the larger quota at least the
+#: smaller - ORDER_SLACK (the JAX artifacts show both orderings)
+RECALL_PARITY = {
+    "adversarial_10M": dict(
+        ref="benchmarks/r05_recall_adversarial_10M_rerank.json", rule="abs",
+        bound=0.10, ordered=True),
+    "stream_100M": dict(ref="benchmarks/r05_recall_100M.json",
+                        rule="sigma", bound=3.0, ordered=True),
+    "neardup_100M": dict(ref="benchmarks/r05_recall_100M_neardup.json",
+                         rule="floor", bound=0.04, ordered=False),
+}
+ORDER_SLACK = 0.03
+
+#: phase_recall_parity's runs: ``host_args`` is the adversarial artifact's
+#: config through ``eval_recall.run`` (10,485,760 rows drawn on the host,
+#: the fused rerank in bfloat16 as the artifact's); the stream runs take
+#: ``stream_n`` rows made on the card (``--stream-synth``), over ``quotas``
+#: x ``widths`` and, at the near-duplicate artifact's query noise, over
+#: ``neardup_quotas`` x ``widths`` on the same index; ``replay_width`` is
+#: the pinned width of the kernel-vs-plain replays; ``refresh_rows`` more
+#: rows go into the stream index after its sweeps
+RECALL_RUNS = dict(
+    host_args=("--n", "10485760", "--dim", "256", "--V", "4096", "--M", "8",
+               "--query-noise", "0.25", "--queries", "100", "--quota",
+               "10000", "--quotas", "10000,100000", "--probe-widths",
+               "64,256,0", "--rerank-dtype", "bfloat16", "--skip-exact"),
+    stream_n=104_857_600, quotas=(10_000, 100_000), widths=(64, 256, 0),
+    neardup_quotas=(10_000,), replay_width=64,
+    refresh_rows=8192, seed=0)
+
+
+def ordering_misses(runs, slack=ORDER_SLACK):
+    """The orderings that the probed rows of ``runs`` break at k = 1, 10,
+    100: within a quota, width 256 below width 64 by more than ``slack``;
+    at a width, a larger quota below a smaller one by more than
+    ``slack``."""
+    probed = {}
+    for r in runs:
+        if r["method"].startswith("probed_quota") and "rerank" not in r:
+            probed[(int(r["method"][len("probed_quota"):]),
+                    r["probe_width"])] = r
+    quotas = sorted({q for q, _ in probed})
+    widths = sorted({w for _, w in probed})
+    misses = []
+    for k in (1, 10, 100):
+        key = f"recall@{k}"
+        pairs = [((q, "64"), (q, "256")) for q in quotas]
+        pairs += [((q0, w), (q1, w)) for w in widths
+                  for q0, q1 in zip(quotas, quotas[1:])]
+        for lo, hi in pairs:
+            if lo in probed and hi in probed and round(
+                    probed[lo][key] - probed[hi][key], 9) > slack:
+                misses.append(f"{key} at quota {hi[0]} width {hi[1]} "
+                              f"({probed[hi][key]}) below quota {lo[0]} "
+                              f"width {lo[1]} ({probed[lo][key]}) by more "
+                              f"than {slack}")
+    return misses
+
+
+def parity_table(port_runs, ref_runs, rule, bound, queries, ordered):
+    """Each row of a JAX artifact's ``ref_runs`` beside the port's row of
+    the same method and probe width at k = 1, 10, 100 under ``rule`` (see
+    RECALL_PARITY): both recalls, the difference, the bound (and sigma)
+    and whether it holds; a JAX row the port lacks fails. Returns
+    ``rows``, the ordering misses of the port's rows and ``ok``."""
+    by = {(r["method"], r.get("probe_width")): r for r in port_runs}
+    rows = []
+    for ref in ref_runs:
+        got = by.get((ref["method"], ref.get("probe_width")))
+        for k in (1, 10, 100):
+            row = dict(method=ref["method"], probe_width=ref.get(
+                "probe_width"), k=k, jax=ref[f"recall@{k}"], port=None,
+                delta=None, bound=None, ok=False)
+            rows.append(row)
+            if got is None:
+                continue
+            row["port"] = p = got[f"recall@{k}"]
+            row["delta"] = d = round(p - row["jax"], 9)
+            if rule == "abs":
+                row["bound"] = bound
+                row["ok"] = abs(d) <= bound
+            elif rule == "sigma":
+                pooled = (p + row["jax"]) / 2
+                row["sigma"] = float(np.sqrt(2 * pooled * (1 - pooled)
+                                             / queries))
+                row["bound"] = round(bound * row["sigma"], 9)
+                row["ok"] = abs(d) <= row["bound"]
+            elif rule == "floor":
+                row["bound"] = -bound
+                row["ok"] = d >= -bound
+            else:
+                raise ValueError(f"unknown parity rule {rule!r}")
+    misses = ordering_misses(port_runs) if ordered else []
+    return dict(rows=rows, order_misses=misses,
+                ok=all(r["ok"] for r in rows) and not misses)
+
+
+def check_recall_parity(name, port_runs, ref, queries, card):
+    """parity_table of the port's rows against the JAX artifact ``ref``
+    under RECALL_PARITY[name]'s rule, each row logged; raises on a miss.
+    Returns the table."""
+    spec = RECALL_PARITY[name]
+    table = parity_table(port_runs, ref["runs"], spec["rule"], spec["bound"],
+                         queries, spec["ordered"])
+    for r in table["rows"]:
+        sigma = f", sigma {r['sigma']:.4f}" if "sigma" in r else ""
+        log(f"recall parity {name}: {r['method']} width {r['probe_width']} "
+            f"recall@{r['k']}: port {r['port']} JAX {r['jax']} delta "
+            f"{r['delta']} ({spec['rule']} bound {r['bound']}{sigma}): "
+            f"{'pass' if r['ok'] else 'FAIL'} [{card}]")
+    for m in table["order_misses"]:
+        log(f"recall parity {name}: ordering FAIL: {m}")
+    if not table["ok"]:
+        bad = [f"{r['method']} width {r['probe_width']} recall@{r['k']} "
+               f"port {r['port']} JAX {r['jax']}"
+               for r in table["rows"] if not r["ok"]]
+        raise AssertionError(f"recall parity {name} ({spec['ref']}): "
+                             f"{bad + table['order_misses']}")
+    return table
+
+
+def adc_float64(tables, x, cells, fine, V):
+    """Exact float64 ADC distances of the rows with cell ids ``cells`` and
+    fine codes ``fine`` [n, M] from the query ``x``, from the model's
+    tables (``Cs``, ``Rs``, ``mus``, ``subs``, float64 on one device)."""
+    Cs, Rs, mus, subs = tables
+    F, Dsub = subs.shape[1], subs.shape[3]
+    dev = Cs.device
+    x2 = torch.as_tensor(x, device=dev).double().reshape(2, -1)
+    cells = torch.as_tensor(cells, device=dev).long()
+    fine = torch.as_tensor(fine, device=dev).long()
+    d = torch.zeros(len(cells), dtype=torch.float64, device=dev)
+    for s, c in enumerate((cells // V, cells % V)):
+        r = x2[s][None] - Cs[s][c] - mus[s][c]
+        pr = torch.einsum("nij,nj->ni", Rs[s][c], r)
+        for f in range(F):
+            diff = pr[:, f * Dsub:(f + 1) * Dsub] - subs[s, f][fine[:, s * F
+                                                                   + f]]
+            d += (diff * diff).sum(dim=1)
+    return d.cpu().numpy()
+
+
+def pinned_lut_replay(s, queries, quota, width, what):
+    """A wave of searcher ``s`` pinned to probe width ``width`` (the LUT
+    route: ``lut_build`` launches) held to its replay with the plain LUT
+    (``build_luts_plain``) and a float64 re-scoring of the codes: the
+    kernel wave's distances equal the float64 ADC distances of its rows
+    (SELECT_TIE_RTOL), and its ids a stable selection of the plain wave's
+    rows by those distances but rounding ties (plain_selection_check).
+    The searcher's ids are its rows. Returns (launches, tie swaps)."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall
+    from columbiaimagesearch_tpu_torch.index import query as qmod
+    from columbiaimagesearch_tpu_torch.index.lut import (
+        build_luts,
+        build_luts_plain,
+    )
+
+    kw = dict(quota=quota, limit=eval_recall.LIMIT, with_dists=True,
+              with_codes=False)
+    s.probe_width = width
+    before = build_luts.launches
+    got = s.search_batch(queries, **kw)
+    launches = build_luts.launches - before
+    with mock.patch.object(qmod, "build_luts", build_luts_plain):
+        plain = s.search_batch(queries, **kw)
+    s.probe_width = None
+    m = s.model
+    tables = tuple(t.double() for t in (m.Cs, m.Rs, m.mus, m.subs))
+    swaps = 0
+    for q, ((a, _), (b, _)) in enumerate(zip(got, plain)):
+        ids = np.array([r.id for r in a], np.int64)
+        want = np.array([r.id for r in b], np.int64)
+        if len(ids) != len(want) or not len(ids):
+            raise AssertionError(f"{what}: query {q}: {len(ids)} results on "
+                                 f"the kernel, {len(want)} plain")
+        dists = np.array([r.dist for r in a], np.float64)
+        exact = adc_float64(tables, queries[q], s._cells[ids], s._fine[ids],
+                            m.V)
+        far = np.abs(dists - exact) > SELECT_TIE_RTOL * np.maximum(1.0,
+                                                                   exact)
+        if far.any():
+            r = int(np.nonzero(far)[0][0])
+            raise AssertionError(f"{what}: query {q} rank {r}: distance "
+                                 f"{dists[r]} against {exact[r]} in float64")
+        d64 = adc_float64(tables, queries[q], s._cells[want], s._fine[want],
+                          m.V)
+        order = np.argsort(d64, kind="stable")
+        swaps += plain_selection_check(ids, dists, want[order], d64[order],
+                                       f"{what}: query {q}")
+    del tables
+    return launches, swaps
+
+
+def _stage_timer(stages, name, fn, sync):
+    """``fn`` wrapped to add its host seconds (to a sync) to
+    ``stages[name]``."""
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return timed
+
+
+def _kept_searchers(made, sync):
+    """A ``LOPQSearcherTorch`` subclass that appends each instance to
+    ``made`` and packs in ``add_codes`` (the refresh a first search would
+    run), recording its seconds as ``add_s`` (the results are the
+    same)."""
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        LOPQSearcherTorch,
+    )
+
+    class Kept(LOPQSearcherTorch):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def add_codes(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().add_codes(*a, **kw)
+            self._pack()
+            sync()
+            self.add_s = getattr(self, "add_s", 0.0) + (
+                time.perf_counter() - t0)
+    return Kept
+
+
+def _add_codes_split(split, sync):
+    """Patches (an ExitStack) that add the host seconds of
+    ``LOPQSearcherTorch.add_codes``' steps to ``split``: the codes'
+    arrays, the dedup's id interning and whole ``filter_new``, the merge
+    into the host mirror (``_take_pending``) and the device sort path."""
+    import contextlib
+
+    from columbiaimagesearch_tpu_torch.index import searcher as smod
+    from columbiaimagesearch_tpu_torch.utils.codes import IncrementalDedup
+
+    stack = contextlib.ExitStack()
+    for owner, name, key in (
+            (smod, "_codes_to_arrays", "codes_to_arrays"),
+            (IncrementalDedup, "intern", "intern"),
+            (IncrementalDedup, "filter_new", "filter_new"),
+            (smod.LOPQSearcherTorch, "_take_pending", "take_pending"),
+            (smod, "append_and_build_csr", "csr_build")):
+        stack.enter_context(mock.patch.object(owner, name, _stage_timer(
+            split, key, getattr(owner, name), sync)))
+    return stack
+
+
+def _wave_log(s, n):
+    """The last ``n`` waves' [start rung, share short, settle rung, floor,
+    yield EMA] of searcher ``s``'s ladder."""
+    return s.probe_stats.get("wave_log", [])[-n:]
+
+
+def _peak(dev):
+    return (int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
+            else None)
+
+
+def recall_host_run(dev, card, work, cfg, ref):
+    """Run (a): ``eval_recall.run`` at the adversarial artifact's config
+    (``host_args``), its artifact under ``work``, held to the artifact by
+    check_recall_parity; the sweep's index replayed at ``replay_width``
+    (pinned_lut_replay) and the bfloat16 fused rerank's
+    (rerank_replay). Returns (numbers, the trained model)."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall as er
+    from columbiaimagesearch_tpu_torch.index import searcher as smod
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out_path = os.path.join(work, "r05_recall_adversarial_10M_rerank.json")
+    args = er.parse_args(list(cfg["host_args"]) + [
+        "--out", out_path] + (["--cpu"] if dev.type == "cpu" else []))
+    stages, made = {}, []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = build_luts.launches
+    t0 = time.perf_counter()
+    with mock.patch.object(smod, "LOPQSearcherTorch",
+                           _kept_searchers(made, sync)), \
+            mock.patch.multiple(
+                er, SynthData=_stage_timer(stages, "draw", er.SynthData,
+                                           sync),
+                train_model=_stage_timer(stages, "train", er.train_model,
+                                         sync),
+                ground_truth=_stage_timer(stages, "ground_truth",
+                                          er.ground_truth, sync),
+                encode=_stage_timer(stages, "encode", er.encode, sync),
+                probed_sweep=_stage_timer(stages, "sweep", er.probed_sweep,
+                                          sync),
+                probed_rerank=_stage_timer(stages, "rerank",
+                                           er.probed_rerank, sync)):
+        artifact, state = er.run(args)
+    run_s = time.perf_counter() - t0
+    sweep_s, rerank_s = made
+    stages["add_codes"] = sweep_s.add_s
+    stages["sweep"] -= sweep_s.add_s
+    stages["rerank_add_codes"] = rerank_s.add_s
+    stages["rerank"] -= rerank_s.add_s
+    n_sweep = len(artifact["runs"]) - 1
+    logs = _wave_log(sweep_s, 2 * n_sweep)[1::2]
+    for r, w in zip(artifact["runs"], logs):
+        r["wave_log"] = w
+    with open(out_path, "w") as f:
+        json.dump(artifact, f, indent=1)
+    data, queries = state["data"], state["data"].queries
+    table = check_recall_parity("adversarial_10M", artifact["runs"], ref,
+                                args.queries, card)
+    t0 = time.perf_counter()
+    lut_launches, lut_swaps = pinned_lut_replay(
+        sweep_s, queries, args.quota, cfg["replay_width"],
+        "recall parity (a): pinned LUT replay")
+    rerank_swaps = rerank_replay(rerank_s, data.X, queries, args.quota,
+                                 cfg["replay_width"], "recall parity (a)")
+    replay_s = time.perf_counter() - t0
+    launches = build_luts.launches - launches0
+    if dev.type == "cuda" and (launches <= 0 or lut_launches <= 0):
+        raise AssertionError("recall parity (a): lut_build did not launch")
+    stages = {k: round(v, 2) for k, v in stages.items()}
+    nums = dict(n=args.n, dim=args.dim, V=args.V, rows=table["rows"],
+                stages_s=stages, run_s=round(run_s, 2),
+                replay_s=round(replay_s, 2), peak_bytes=_peak(dev),
+                lut_launches=launches, lut_replay_swaps=lut_swaps,
+                rerank_replay_swaps=rerank_swaps,
+                wave_log=dict(zip([f"{r['method']}@{r['probe_width']}"
+                                   for r in artifact["runs"]], logs)))
+    log(f"recall parity (a): eval_recall.run at {args.n} x {args.dim} "
+        f"(host draw, V={args.V}) in {run_s:.1f}s: stage seconds {stages}; "
+        f"peak card memory {nums['peak_bytes']} bytes; every row within "
+        f"{RECALL_PARITY['adversarial_10M']['bound']} of the JAX artifact; "
+        f"a wave pinned to width {cfg['replay_width']} equal to its plain "
+        f"LUT and float64 replay ({lut_swaps} rounding-tie swaps) and the "
+        f"bfloat16 fused rerank to a float64 re-sort ({rerank_swaps}); "
+        f"lut_build launches {launches} [{card}]")
+    model = state["model"]
+    del state, data, made, sweep_s, rerank_s
+    return nums, model
+
+
+def _sweep_rows(s, queries, nns, widths, quotas):
+    """The probed rows of searcher ``s`` over quotas x widths, as
+    ``eval_recall.probed_sweep`` makes them, on an index already built."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall
+
+    rows = []
+    for quota in quotas:
+        for w in widths:
+            s.probe_width = w or None
+            answers, dt = eval_recall._timed_wave(s, queries, quota=quota)
+            rows.append(eval_recall.recall_row(
+                f"probed_quota{quota}", answers, nns, dt, batched=True,
+                probe_width="adaptive" if not w else str(w)))
+    s.probe_width = None
+    return rows
+
+
+def recall_stream_runs(dev, card, work, cfg, model, refs):
+    """Runs (b) and (c) on one index of ``stream_n`` rows made on the
+    card: (b) ``eval_recall``'s stages on ``model`` (run (a)'s: its
+    training rows, seed 1, are (b)'s), held to the 100M artifact, its
+    index replayed at ``replay_width``; (c) new queries on the same index
+    and a new ground truth, held to the near-duplicate artifact; then
+    refresh_at_scale. The query counts and noises are the artifacts'.
+    Returns (numbers of (b), of (c), the refresh's)."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall as er
+    from columbiaimagesearch_tpu_torch.index import searcher as smod
+    from columbiaimagesearch_tpu_torch.index.lut import build_luts
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    n, dim = cfg["stream_n"], 2 * model.Cs.shape[2]
+    ref_b, ref_c = refs["stream_100M"]["config"], refs["neardup_100M"]["config"]
+    nq, noise, near_noise = (ref_b["queries"], ref_b["query_noise"],
+                             ref_c["query_noise"])
+    stages, made = {}, []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = build_luts.launches
+    t0 = time.perf_counter()
+    # train_n 0: (a)'s model is reused, so the training rows are not drawn
+    data = _stage_timer(stages, "draw", er.SynthData, sync)(
+        n, dim, 0, nq, noise, True, dev)
+    nns = _stage_timer(stages, "ground_truth", er.ground_truth, sync)(data)
+    coarse, fine = _stage_timer(stages, "encode", er.encode, sync)(model,
+                                                                   data)
+    split = {}
+    with _add_codes_split(split, sync), mock.patch.object(
+            smod, "LOPQSearcherTorch", _kept_searchers(made, sync)):
+        runs = _stage_timer(stages, "sweep", er.probed_sweep, sync)(
+            model, coarse, fine, data.queries, nns, list(cfg["widths"]),
+            list(cfg["quotas"]))
+    del coarse, fine
+    s, = made
+    stages["add_codes"] = s.add_s
+    stages["sweep"] -= s.add_s
+    split = dict(codes_to_arrays=split["codes_to_arrays"],
+                 intern=split["intern"],
+                 dedup_keys=split["filter_new"] - split["intern"],
+                 mirror=split["take_pending"] - split["filter_new"],
+                 csr_build=split["csr_build"],
+                 rest=s.add_s - split["codes_to_arrays"]
+                 - split["take_pending"] - split["csr_build"])
+    split = {k: round(v, 2) for k, v in split.items()}
+    log(f"recall parity (b): add_codes of {n} rows, seconds a step: {split} "
+        f"(intern: np.unique of the ids; dedup_keys: the (cell, id) key "
+        f"sorts; mirror: the host arrays; csr_build: append_and_build_csr; "
+        f"rest: the device buffers' upload) [{card}]")
+    b_s = time.perf_counter() - t0
+    logs = _wave_log(s, 2 * len(runs))[1::2]
+    for r, w in zip(runs, logs):
+        r["wave_log"] = w
+    config = dict(n=n, dim=dim, V=model.V, M=model.M, query_noise=noise,
+                  queries=nq, quota=cfg["quotas"][0], stream_synth=True,
+                  device=torch.cuda.get_device_name(dev)
+                  if dev.type == "cuda" else "cpu", model="run (a)'s")
+    with open(os.path.join(work, "r05_recall_100M.json"), "w") as f:
+        json.dump(dict(config=config, runs=runs), f, indent=1)
+    table_b = check_recall_parity("stream_100M", runs, refs["stream_100M"],
+                                  nq, card)
+    t0 = time.perf_counter()
+    lut_launches, lut_swaps = pinned_lut_replay(
+        s, data.queries, cfg["quotas"][0], cfg["replay_width"],
+        "recall parity (b): pinned LUT replay")
+    replay_s = time.perf_counter() - t0
+    launches_b = build_luts.launches - launches0
+    peak_b = _peak(dev)
+    stages = {k: round(v, 2) for k, v in stages.items()}
+    log(f"recall parity (b): {n} x {dim} streamed rows on run (a)'s model "
+        f"in {b_s:.1f}s: stage seconds {stages}; peak card memory {peak_b} "
+        f"bytes; every row within {RECALL_PARITY['stream_100M']['bound']} "
+        f"sigma of the JAX artifact; a wave pinned to width "
+        f"{cfg['replay_width']} equal to its plain LUT and float64 replay "
+        f"({lut_swaps} rounding-tie swaps, {replay_s:.1f}s); lut_build "
+        f"launches {launches_b} [{card}]")
+    if dev.type == "cuda" and (launches_b <= 0 or lut_launches <= 0):
+        raise AssertionError("recall parity (b): lut_build did not launch")
+    nums_b = dict(n=n, rows=table_b["rows"], stages_s=stages,
+                  add_codes_split_s=split,
+                  run_s=round(b_s, 2), replay_s=round(replay_s, 2),
+                  peak_bytes=peak_b, lut_launches=launches_b,
+                  lut_replay_swaps=lut_swaps,
+                  wave_log=dict(zip([f"{r['method']}@{r['probe_width']}"
+                                     for r in runs], logs)))
+
+    # (c): near-duplicate queries on the same index, drawn as the JAX
+    # script draws them (RandomState(3)) at the artifact's noise.
+    stages = {}
+    launches0 = build_luts.launches
+    t0 = time.perf_counter()
+    near = _stage_timer(stages, "draw", er.SynthData, sync)(
+        n, dim, 0, ref_c["queries"], near_noise, True, dev)
+    nns_c = _stage_timer(stages, "ground_truth", er.ground_truth, sync)(near)
+    runs_c = _stage_timer(stages, "sweep", _sweep_rows, sync)(
+        s, near.queries, nns_c, cfg["widths"], cfg["neardup_quotas"])
+    c_s = time.perf_counter() - t0
+    logs = _wave_log(s, 2 * len(runs_c))[1::2]
+    for r, w in zip(runs_c, logs):
+        r["wave_log"] = w
+    with open(os.path.join(work, "r05_recall_100M_neardup.json"), "w") as f:
+        json.dump(dict(config=dict(config, query_noise=near_noise),
+                       runs=runs_c), f, indent=1)
+    table_c = check_recall_parity("neardup_100M", runs_c,
+                                  refs["neardup_100M"], nq, card)
+    launches_c = build_luts.launches - launches0
+    if dev.type == "cuda" and launches_c <= 0:
+        raise AssertionError("recall parity (c): lut_build did not launch")
+    stages = {k: round(v, 2) for k, v in stages.items()}
+    log(f"recall parity (c): {ref_c['queries']} queries at noise {near_noise} "
+        f"on (b)'s index in {c_s:.1f}s: stage seconds {stages}; every row "
+        f"at least the JAX artifact's - "
+        f"{RECALL_PARITY['neardup_100M']['bound']}; lut_build launches "
+        f"{launches_c} [{card}]")
+    nums_c = dict(rows=table_c["rows"], stages_s=stages, run_s=round(c_s, 2),
+                  lut_launches=launches_c,
+                  wave_log=dict(zip([f"{r['method']}@{r['probe_width']}"
+                                     for r in runs_c], logs)))
+
+    refresh = refresh_at_scale(s, data.comp, cfg, card)
+    del s, made, data, near
+    return nums_b, nums_c, refresh
+
+
+def refresh_at_scale(s, comp, cfg, card):
+    """``refresh_rows`` more rows of the mixture ``comp`` into searcher
+    ``s``'s index, with ids that go on from its own: the refresh through
+    ``add_codes`` and the pack a search would run, timed on the host
+    (the dedup's id table first turned into a dict, once after a bulk add,
+    timed apart), then its sort path (``append_and_build_csr``) alone on
+    the card, as phase_refresh_sort times it. Returns the numbers."""
+    from columbiaimagesearch_tpu_torch.index.csr import append_and_build_csr
+
+    dev, model = s.device, s.model
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dim = comp.shape[1]
+    k = cfg["refresh_rows"]
+    rng = np.random.RandomState(cfg["seed"] + 31)
+    extra = (comp[rng.randint(0, len(comp), k)]
+             + 0.25 * rng.randn(k, dim)).astype(np.float32)
+    co, fi = model.predict_batch(extra)
+    n0 = s.get_nb_indexed()
+    t0 = time.perf_counter()
+    s._dedup._materialize()
+    intern_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.add_codes((co, fi), ids=np.arange(n0, n0 + k))
+    nb = s.get_nb_indexed()
+    sync()
+    pack_s = time.perf_counter() - t0
+    if nb != n0 + k:
+        raise AssertionError(f"recall parity: the refresh indexed {nb} rows, "
+                             f"not {n0 + k}")
+    V = model.V
+    chunk_c = torch.from_numpy(s._cells[n0:nb].astype(np.int32)).to(dev)
+    chunk_f = torch.from_numpy(s._fine[n0:nb].copy()).to(dev)
+
+    def refresh():
+        return append_and_build_csr(s._buf_cells, s._buf_fine, chunk_c,
+                                    chunk_f, n0, V)
+
+    again = refresh()
+    if not torch.equal(again[0], s._dev["cells_sorted"]):
+        raise AssertionError("recall parity: the timed refresh's sorted "
+                             "cells differ from the searcher's")
+    del again
+    ms = (float(np.median(time_ms(refresh, 5))) if dev.type == "cuda"
+          else None)
+    cap = int(s._buf_cells.shape[0])
+    refresh_nums = dict(rows=k, index_rows=n0, capacity=cap,
+                        intern_s=round(intern_s, 2),
+                        add_and_pack_s=round(pack_s, 2), sort_path_ms=ms)
+    log(f"refresh sort: one {k}-row append_and_build_csr into the "
+        f"{n0}-row index ({cap} rows of capacity, V={V}, M={model.M}): "
+        f"{ms} ms (p50 of 5, CUDA events around each call); the whole "
+        f"refresh through add_codes on the host: the id table made a dict "
+        f"{intern_s:.2f}s (once after the bulk add), add_codes + pack "
+        f"{pack_s:.2f}s [{card}]")
+    return refresh_nums
+
+
+def phase_recall_parity(dev, card, cfg=None):
+    """The port's recall held to the JAX package's committed artifacts
+    (RECALL_PARITY) in three runs (RECALL_RUNS): (a) at 10,485,760 rows
+    drawn on the host, (b) at 104,857,600 rows made on the card, (c)
+    near-duplicate queries on (b)'s index; the artifacts go under
+    build/recall_parity/. Returns (numbers, ``lut_build`` launches)."""
+    cfg = dict(RECALL_RUNS, **(cfg or {}))
+    work = os.path.join(ROOT, "build", "recall_parity")
+    os.makedirs(work, exist_ok=True)
+    refs = {}
+    for name, spec in RECALL_PARITY.items():
+        with open(os.path.join(ROOT, spec["ref"])) as f:
+            refs[name] = json.load(f)
+    a, model = recall_host_run(dev, card, work, cfg,
+                               refs["adversarial_10M"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    b, c, refresh = recall_stream_runs(dev, card, work, cfg, model, refs)
+    launches = a["lut_launches"] + b["lut_launches"] + c["lut_launches"]
+    return dict(adversarial_10M=a, stream_100M=b, neardup_100M=c,
+                refresh=refresh), launches
+
+
 class PhaseClock:
     """Host seconds of each phase of ``main``, logged as each ends."""
 
@@ -5078,6 +5673,11 @@ def main():
     torch.cuda.empty_cache()
     tools, tools_launches = phase_tools(dev, card)
     clock.lap("tools")
+    torch.cuda.empty_cache()
+    parity, parity_launches = phase_recall_parity(dev, card)
+    clock.lap("recall_parity")
+    codestore["refresh_sort_ms"][parity["refresh"]["capacity"]] = (
+        parity["refresh"]["sort_path_ms"])
     http, http_launches = serving["sharded_http"]
     sharded["http"] = http
     sharded_launches += http_launches
@@ -5087,7 +5687,8 @@ def main():
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
         f"the face probed path + {face_serving['launches']} on the face "
-        f"serving path + {tools_launches['lut']} on the tools path; "
+        f"serving path + {tools_launches['lut']} on the tools path + "
+        f"{parity_launches} on the recall parity path; "
         f"adc_scan {ex['adc_launches']} on the exhaustive path + "
         f"{tools_launches['adc']} on the tools path")
     worst = max([worst] + [r["max_abs"] for k, r in face_probe.items()
@@ -5111,13 +5712,16 @@ def main():
                                   power_limit=power.strip())}))
     log(json.dumps({"blocked_encode": dict(blocked, card=name.strip(),
                                            power_limit=power.strip())}))
+    log(json.dumps({"recall_parity": dict(parity, card=name.strip(),
+                                          power_limit=power.strip())}))
     log(json.dumps({"kernels": [{
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
         "launches": launches + wide_launches + sharded_launches
         + serving["launches"]["lut"] + ex["lut_launches"] + face_launches
-        + face_serving["launches"] + tools_launches["lut"],
+        + face_serving["launches"] + tools_launches["lut"]
+        + parity_launches,
         "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

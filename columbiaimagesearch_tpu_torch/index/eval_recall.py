@@ -131,10 +131,22 @@ class SynthData:
 
     def host_rows(self, n, seed):
         """``n`` rows from ``RandomState(seed)``, as the JAX script's
-        ``synth`` draws them."""
+        ``synth`` draws them: every component index first, then the noise
+        in blocks of ``CH`` rows from the same generator, each written
+        into one float32 array. Legacy ``randn`` carries its Gaussian
+        state across calls, so the rows are bit-equal to the one-shot
+        draw, and the host holds the float32 rows plus one block's float64
+        noise and float32 temporaries, where the one-shot draw holds
+        [n, dim] float64 arrays (a 55 GB peak at 10,485,760 x 256)."""
         r = np.random.RandomState(seed)
-        return (self.comp[r.randint(0, N_COMP, n)]
-                + 0.25 * r.randn(n, self.dim)).astype(np.float32)
+        comp_idx = r.randint(0, N_COMP, n)
+        out = np.empty((n, self.dim), np.float32)
+        for lo in range(0, n, CH):
+            block = r.randn(min(CH, n - lo), self.dim)
+            block *= 0.25
+            np.add(self.comp[comp_idx[lo:lo + CH]], block,
+                   out=out[lo:lo + CH], casting="same_kind")
+        return out
 
     def chunk(self, c):
         """Rows ``[c * CH, min((c + 1) * CH, n))`` on the device; when
