@@ -236,6 +236,8 @@ Imports nothing of JAX.
 """
 
 import base64
+import contextlib
+import copy
 import itertools
 import json
 import os
@@ -1622,11 +1624,7 @@ def phase_profile(dev, cfg, state, card):
 
 
 def phase_numbers(dev, cfg, state, card):
-    from columbiaimagesearch_tpu_torch.index.probe import rung_cells
-    from columbiaimagesearch_tpu_torch.index.query import (
-        brute_query_batch,
-        lopq_query,
-    )
+    from columbiaimagesearch_tpu_torch.index.query import lopq_query
 
     s = state["searcher"]
     d = s._dev
@@ -1644,15 +1642,9 @@ def phase_numbers(dev, cfg, state, card):
                                         B=B, Q=Q, K=K, SB=SB), 5)
         return float(np.median(ts)) / nq
 
-    t64 = rung_ms(cfg["B"], 0)
-    out[f"lopq_query_p50_ms_per_query_B{cfg['B']}"] = t64
+    out[f"lopq_query_p50_ms_per_query_B{cfg['B']}"] = rung_ms(cfg["B"], 0)
     Bs, SBs = cfg["strip_rung"]
-    tstrip = rung_ms(Bs, SBs)
-    out[f"lopq_query_p50_ms_per_query_B{Bs}_SB{SBs}"] = tstrip
-    g1, g2 = rung_cells(cfg["B"], V), rung_cells(cfg["strip_rung"], V)
-    per_cell_ns = (tstrip - t64) * 1e6 / (g2 - g1)
-    out["GRID_NS_PER_CELL"] = per_cell_ns
-    out["GRID_NS_FIXED"] = t64 * 1e6 - per_cell_ns * g1
+    out[f"lopq_query_p50_ms_per_query_B{Bs}_SB{SBs}"] = rung_ms(Bs, SBs)
 
     sync = torch.cuda.synchronize
     it = iter(batches * 3)
@@ -1664,23 +1656,6 @@ def phase_numbers(dev, cfg, state, card):
         lambda: s.search_batch(next(it), quota=cfg["quota"],
                                limit=cfg["limit"], with_codes=False,
                                rerank_nb=cfg["rerank_nb"]), 5, sync)))
-
-    nb = s.nb_indexed
-    Kb = _geometry(s, cfg)[1]
-
-    def brute_ms(n):
-        X = batches[0][:n]
-        return float(np.median(time_ms(lambda: brute_query_batch(
-            X, d["feats"], d["feats_sq"], nb, d["n_occ"],
-            K_pre=cfg["rerank_nb"], K_out=Kb), 3)))
-
-    # probe.prefer_brute's model: a wave of n costs FIXED + n * nb * PER_ROW
-    t_all, t_1 = brute_ms(nq), brute_ms(1)
-    per_row = (t_all - t_1) * 1e6 / ((nq - 1) * nb)
-    out["brute_p50_ms_per_wave"] = t_all
-    out["brute_p50_ms_single_query"] = t_1
-    out["BRUTE_NS_PER_ROW"] = per_row
-    out["BRUTE_NS_FIXED"] = t_1 * 1e6 - nb * per_row
     # A pinned probe_width=256 (B*B = 65,536 > 16,384, B < V): the
     # sort-free wide square path, held to a plain selection.
     Xw = batches[1][:32]
@@ -1692,6 +1667,293 @@ def phase_numbers(dev, cfg, state, card):
     for k, v in out.items():
         log(f"numbers: {k}={v!r} [{card}]")
     return out
+
+
+#: the plan-cost phase on the headline model: searchers over the first
+#: ``nbs`` rows of the main path's index (the largest is the main path's
+#: own), each with a float32 rerank store; at each nb and each of ``nqs``
+#: the brute wave, and the grid wave pinned to each of ``rungs`` at each
+#: of ``quotas`` (limit the headline's, ``rerank_nb`` 1,000), each timed
+#: once a round for ``rounds`` rounds after one warm-up round (a point's
+#: median; the rounds spread the host's slow spells over every point);
+#: probe.py's cost model is fitted to them, and whether it comes within
+#: ``fit_rtol`` of every point of ``fit_min_ms`` or more is logged (the
+#: host-bound waves move by a third from one machine to the next). Then
+#: the plan choice, the phase's check, at each of ``choice_nbs`` x
+#: ``choice_quotas`` x ``choice_nqs``: ``runs`` waves forced onto each
+#: plan, the picked plan's median at most ``ratio`` times the other's
+PLAN_COSTS = dict(nbs=(20_000, 262_144, 1_048_576, 10_485_760),
+                  nqs=(1, 16, 100), quotas=(10_000, 100_000),
+                  rungs=(64, (128, 8), (256, 16), (512, 32)), rounds=9,
+                  fit_rtol=0.30, fit_min_ms=1.0,
+                  choice_nbs=(20_000, 1_048_576, 10_485_760),
+                  choice_nqs=(1, 100), choice_quotas=(10_000, 100_000),
+                  small_nqs=(1, 16, 50, 100), runs=7, ratio=1.5)
+#: the plan costs and choice also at the recall test's configuration
+#: (tests/test_torch_eval_recall_scale.py, the adversarial artifact cut
+#: to 20,000 x 32 rows, V 16): ``eval_recall``'s rows, model and bfloat16
+#: store, its 50 queries and a single one, quota 500
+PLAN_SMALL = dict(n=20_000, dim=32, V=16, M=8, train_n=4000, queries=50,
+                  noise=0.25, quota=500, dtype="bfloat16")
+
+
+def plan_searchers(s, nbs):
+    """Searchers over the first ``nb`` rows of searcher ``s``'s index,
+    through ``add_codes`` with their float32 rows (``s`` itself for its
+    own size)."""
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    V = s.model.V
+    out = {}
+    for nb in nbs:
+        if nb == s.nb_indexed:
+            out[nb] = s
+            continue
+        cells = s._cells[:nb]
+        ss = LOPQSearcherTorch(s.model, rerank_dtype="float32")
+        ss.add_codes((np.stack([cells // V, cells % V], axis=1),
+                      s._fine[:nb]), feats=s._dev["feats"][:nb])
+        if ss.get_nb_indexed() != nb:           # packs the device index
+            raise AssertionError(f"plan costs: indexed "
+                                 f"{ss.get_nb_indexed()} rows, want {nb}")
+        out[nb] = ss
+    return out
+
+
+class kept_policy:
+    """Restores a searcher's probe policy state (tier hint, yield EMA,
+    wave counters, probe stats) on exit: waves run to measure the plans
+    leave the searcher as they found it."""
+
+    NAMES = ("_tier_hint", "_wave_i", "_brute_i", "_force_reprobe",
+             "_yield_ema", "probe_stats")
+
+    def __init__(self, s):
+        self.s = s
+
+    def __enter__(self):
+        self.keep = {k: copy.deepcopy(getattr(self.s, k))
+                     for k in self.NAMES}
+
+    def __exit__(self, *exc):
+        for k, v in self.keep.items():
+            setattr(self.s, k, v)
+
+
+def rerank_wave(s, X, quota, limit, rnb):
+    """One rerank wave of ``X`` through ``s.search_batch``, or
+    ``s.search`` for one query, as a user calls them."""
+    kw = dict(quota=quota, limit=limit, with_dists=True, rerank_nb=rnb)
+    if X.shape[0] == 1:
+        return lambda: s.search(X[0], **kw)
+    return lambda: s.search_batch(X, with_codes=False, **kw)
+
+
+def plan_patches(s, rung):
+    """Patches that force searcher ``s``'s waves onto one plan: the brute
+    pass (``rung=None``), the ladder (``rung="ladder"``), or the ladder
+    pinned to one rung."""
+    brute = mock.patch.object(s, "_use_brute",
+                              lambda *a, **k: rung is None)
+    if rung is None or rung == "ladder":
+        return [brute]
+    return [brute, mock.patch.object(s, "_probe_ladder", lambda: (rung,))]
+
+
+def event_ms(fn):
+    """CUDA-event ms of one call of ``fn`` (which ends in a sync)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def plan_cases(made, X, pc, limit, rnb):
+    """The plan-cost points at PLAN_COSTS' grid over the headline's
+    searchers ``made`` (by nb): (searcher, queries, plan, rung, quota,
+    limit, rerank depth)."""
+    out = [(made[nb], X[:nq], "brute", None, pc["quotas"][0], limit, rnb)
+           for nb in pc["nbs"] for nq in pc["nqs"]]
+    out += [(made[nb], X[:nq], "grid", r, q, limit, rnb)
+            for q in pc["quotas"] for nb in pc["nbs"] for nq in pc["nqs"]
+            for r in pc["rungs"]]
+    return out
+
+
+def plan_points(cases, rounds, seed=0):
+    """Each case's median wave ms: every case timed once a round (CUDA
+    events around the searcher's wave) in a shuffled order, after a
+    warm-up round, so a slow spell of the host or a wave that follows a
+    long one lands on a different case each round. Returns one dict a
+    case: plan, nq, nb, V, rung, quota, Q (the candidate budget), ms."""
+    from columbiaimagesearch_tpu_torch.index.searcher import _query_geometry
+
+    rng = np.random.default_rng(seed)
+    times = [[] for _ in cases]
+    for rnd in range(rounds + 1):
+        for i in rng.permutation(len(cases)):
+            s, X, plan, r, q, limit, rnb = cases[i]
+            with kept_policy(s), contextlib.ExitStack() as st:
+                for p in plan_patches(s, r if plan == "grid" else None):
+                    st.enter_context(p)
+                ms = event_ms(rerank_wave(s, X, q, limit, rnb))
+            if rnd:
+                times[i].append(ms)
+    out = []
+    for (s, X, plan, r, q, limit, rnb), t in zip(cases, times):
+        nb = s.nb_indexed
+        out.append(dict(plan=plan, nq=X.shape[0], nb=nb, V=s.model.V,
+                        rung=r, quota=q,
+                        Q=_query_geometry(q, limit, nb, rnb)[1],
+                        ms=float(np.median(t))))
+    return out
+
+
+def plan_choice(s, X, quota, limit, rnb, runs, sync):
+    """Searcher ``s``'s rerank wave forced onto each plan (the real
+    ladder, escalation included), ``runs`` host-clock times each taken in
+    turns after a warm-up of each, and the plan an unforced wave picks;
+    the searcher's policy state is restored afterwards. Returns
+    dict(picked "brute" or "ladder", brute_ms and ladder_ms medians,
+    ratio of the picked plan's median to the other's)."""
+    wave = rerank_wave(s, X, quota, limit, rnb)
+
+    def forced(plan):
+        with contextlib.ExitStack() as st:
+            for p in plan_patches(s, None if plan == "brute" else plan):
+                st.enter_context(p)
+            return host_ms(wave, 1, sync)[0]
+
+    with kept_policy(s):
+        for plan in ("ladder", "ladder", "brute"):   # the tier hint settles
+            forced(plan)
+        ts = {"brute": [], "ladder": []}
+        for i in range(runs):
+            for plan in (("brute", "ladder") if i % 2 else
+                         ("ladder", "brute")):
+                ts[plan].append(forced(plan))
+        before = s.probe_stats.get("brute_waves", 0)
+        wave()
+        picked = ("brute" if s.probe_stats.get("brute_waves", 0) > before
+                  else "ladder")
+    b_ms, l_ms = float(np.median(ts["brute"])), float(np.median(ts["ladder"]))
+    return dict(picked=picked, brute_ms=b_ms, ladder_ms=l_ms,
+                ratio=b_ms / l_ms if picked == "brute" else l_ms / b_ms)
+
+
+def choice_text(c, pc):
+    return (f"quota={c['quota']} nq={c['nq']}: picked {c['picked']}; brute "
+            f"median {c['brute_ms']:.3f} ms, ladder median "
+            f"{c['ladder_ms']:.3f} ms (host clock, {pc['runs']} each); "
+            f"picked/other {c['ratio']:.3f}")
+
+
+def recall_config_searcher(dev, cfg):
+    """A searcher at ``cfg`` (PLAN_SMALL: ``eval_recall``'s rows, model
+    and store) and its queries on the device."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall as er
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    data = er.SynthData(cfg["n"], cfg["dim"], cfg["train_n"],
+                        cfg["queries"], cfg["noise"], False, dev)
+    model = er.train_model(data.train, cfg["V"], cfg["M"], dev)
+    coarse, fine = er.encode(model, data)
+    s = LOPQSearcherTorch(model, rerank_dtype=cfg["dtype"])
+    s.add_codes((coarse, fine), feats=data.X)
+    s.get_nb_indexed()
+    return s, torch.from_numpy(data.queries).to(dev)
+
+
+def plan_terms(p, committed=False):
+    """A plan-cost point's terms in probe.py's model, or with
+    ``committed`` the model's ns for it at the committed constants."""
+    from columbiaimagesearch_tpu_torch.index import probe
+
+    if p["plan"] == "brute":
+        args = (p["nq"], p["nb"])
+        return (probe.brute_wave_ns if committed else probe.brute_terms)(*args)
+    args = (p["nq"], p["V"], p["rung"], p["Q"])
+    return (probe.grid_wave_ns if committed else probe.grid_terms)(*args)
+
+
+def phase_plan_costs(dev, cfg, state, card, pc=None, small=None):
+    """Fit probe.py's plan cost model on the card, and hold the plan
+    choice to it: the plan a wave picks is never more than
+    ``PLAN_COSTS["ratio"]`` times slower than the other. The points are
+    the headline's grid and the recall test's configuration (PLAN_SMALL:
+    brute and its one rung at 1 to 100 queries)."""
+    from columbiaimagesearch_tpu_torch.index import eval_recall as er
+    from columbiaimagesearch_tpu_torch.index import probe
+
+    pc = pc or PLAN_COSTS
+    small = small or PLAN_SMALL
+    s = state["searcher"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    lim, rnb = cfg["limit"], cfg["rerank_nb"]
+    t0 = time.perf_counter()
+    made = plan_searchers(s, sorted(set(pc["nbs"]) | set(pc["choice_nbs"])))
+    ss, Xs = recall_config_searcher(dev, small)
+    sync()
+    log(f"plan costs: searchers over {sorted(made)} rows and the recall "
+        f"config's in {time.perf_counter() - t0:.1f}s")
+    X = state["draw"](max(max(pc["nqs"]), max(pc["choice_nqs"])))
+    Xs2 = torch.cat([Xs, Xs])
+    cases = plan_cases(made, X, pc, lim, rnb) + [
+        (ss, Xs2[:nq], plan, small["V"] if plan == "grid" else None,
+         small["quota"], er.LIMIT, er.RERANK_NB)
+        for nq in pc["small_nqs"] for plan in ("brute", "grid")]
+    pts = plan_points(cases, pc["rounds"])
+    fits, worst = {}, {}
+    for plan, names in (("brute", probe.BRUTE_NAMES),
+                        ("grid", probe.GRID_NAMES)):
+        mine = [p for p in pts if p["plan"] == plan]
+        T = [plan_terms(p) for p in mine]
+        c = probe.fit_costs(T, [p["ms"] * 1e6 for p in mine])
+        fits.update(zip(names, (float(x) for x in c)))
+        for p, m in zip(mine, np.asarray(T, np.float64) @ c / 1e6):
+            p["fit_ms"] = float(m)
+            p["committed_ms"] = plan_terms(p, committed=True) / 1e6
+            log(f"plan costs: {plan} V={p['V']} nb={p['nb']} nq={p['nq']} "
+                f"rung={p['rung']} quota={p['quota']}: measured "
+                f"{p['ms']:.4f} ms, fit {m:.4f} ms (fit/measured "
+                f"{m / p['ms']:.3f}), committed model "
+                f"{p['committed_ms']:.4f} ms [{card}]")
+        held = [(round(abs(p["fit_ms"] - p["ms"]) / p["ms"], 3), p)
+                for p in mine
+                if p["ms"] >= pc["fit_min_ms"]]
+        worst[plan] = max(held, key=lambda x: x[0]) if held else None
+    log("plan costs: constants to commit in index/probe.py: "
+        + json.dumps(fits))
+    within = all(w is None or w[0] <= pc["fit_rtol"] for w in worst.values())
+    log(f"plan costs: the fit within {pc['fit_rtol']} of every point of "
+        f"{pc['fit_min_ms']} ms or more: {within}; worst: brute "
+        f"{worst['brute']}, grid {worst['grid']}")
+    choice = []
+    for nb in pc["choice_nbs"]:
+        for quota in pc["choice_quotas"]:
+            for nq in pc["choice_nqs"]:
+                c = plan_choice(made[nb], X[:nq], quota, lim, rnb,
+                                pc["runs"], sync)
+                choice.append(dict(c, nb=nb, quota=quota, nq=nq))
+                log(f"plan choice: nb={nb} " + choice_text(choice[-1], pc)
+                    + f" [{card}]")
+    for nq in (1, small["queries"]):
+        c = plan_choice(ss, Xs[:nq], small["quota"], er.LIMIT, er.RERANK_NB,
+                        pc["runs"], sync)
+        choice.append(dict(c, nb=small["n"], dim=small["dim"], V=small["V"],
+                           quota=small["quota"], nq=nq))
+        log(f"plan choice: recall config {small['n']} x {small['dim']} "
+            f"rows, V={small['V']}, {small['dtype']} store, "
+            + choice_text(choice[-1], pc) + f" [{card}]")
+    bad = [c for c in choice if c["ratio"] > pc["ratio"]]
+    if bad:
+        raise AssertionError(f"plan choice: the picked plan is more than "
+                             f"{pc['ratio']}x slower than the other at "
+                             f"{bad}")
+    return dict(points=pts, fit=fits, fit_within=within, choice=choice)
 
 
 def plain_selection(s, X, quota, B):
@@ -5321,6 +5583,9 @@ def recall_host_run(dev, card, work, cfg, ref):
     data, queries = state["data"], state["data"].queries
     table = check_recall_parity("adversarial_10M", artifact["runs"], ref,
                                 args.queries, card)
+    # The rerank row's waves (a warm-up and the timed one) before the
+    # pinned replays add their own.
+    rerank_brute_waves = rerank_s.probe_stats.get("brute_waves", 0)
     t0 = time.perf_counter()
     lut_launches, lut_swaps = pinned_lut_replay(
         sweep_s, queries, args.quota, cfg["replay_width"],
@@ -5337,6 +5602,7 @@ def recall_host_run(dev, card, work, cfg, ref):
                 replay_s=round(replay_s, 2), peak_bytes=_peak(dev),
                 lut_launches=launches, lut_replay_swaps=lut_swaps,
                 rerank_replay_swaps=rerank_swaps,
+                rerank_brute_waves=rerank_brute_waves,
                 wave_log=dict(zip([f"{r['method']}@{r['probe_width']}"
                                    for r in artifact["runs"]], logs)))
     log(f"recall parity (a): eval_recall.run at {args.n} x {args.dim} "
@@ -5346,7 +5612,8 @@ def recall_host_run(dev, card, work, cfg, ref):
         f"a wave pinned to width {cfg['replay_width']} equal to its plain "
         f"LUT and float64 replay ({lut_swaps} rounding-tie swaps) and the "
         f"bfloat16 fused rerank to a float64 re-sort ({rerank_swaps}); "
-        f"lut_build launches {launches} [{card}]")
+        f"the rerank row's waves took the brute plan {rerank_brute_waves} "
+        f"times of 2; lut_build launches {launches} [{card}]")
     model = state["model"]
     del state, data, made, sweep_s, rerank_s
     return nums, model
@@ -5634,6 +5901,8 @@ def main():
     clock.lap("query_parity")
     phase_numbers(dev, cfg, state, card)
     clock.lap("numbers")
+    plan_costs = phase_plan_costs(dev, cfg, state, card)
+    clock.lap("plan_costs")
     phase_memory(dev, cfg, state, card)
     clock.lap("memory")
     phase_profile(dev, cfg, state, card)
@@ -5712,6 +5981,10 @@ def main():
                                   power_limit=power.strip())}))
     log(json.dumps({"blocked_encode": dict(blocked, card=name.strip(),
                                            power_limit=power.strip())}))
+    log(json.dumps({"plan_costs": dict(
+        fit=plan_costs["fit"], fit_within=plan_costs["fit_within"],
+        choice=plan_costs["choice"], card=name.strip(),
+        power_limit=power.strip())}))
     log(json.dumps({"recall_parity": dict(parity, card=name.strip(),
                                           power_limit=power.strip())}))
     log(json.dumps({"kernels": [{

@@ -3,25 +3,141 @@ quota-aware rung floor and the host-side escalation driver.
 
 Copied from columbiaimagesearch_tpu/index/tpu_query.py:792-968 (pure Python
 and numpy; the JAX module also imports Pallas, so the port keeps its own
-copy). Only the cost constants differ: they are the H100's, measured by
-``chip_smoke.py``.
+copy). Only the plan's cost model differs: its form and its constants are
+the H100's, fitted by ``chip_smoke.py`` ``phase_plan_costs``.
 """
 
+import itertools
 import math
 
 import numpy as np
 
-#: Cost model for the plan choice (brute vs probe ladder): rung latency
-#: per query ~= GRID_NS_FIXED + GRID_NS_PER_CELL * G, brute latency per
-#: query ~= BRUTE_NS_FIXED / nq + BRUTE_NS_PER_ROW * nb. Measured by
-#: chip_smoke.py phase 4 (CUDA events) at 10,485,760 rows, V=4096, M=8,
-#: D=256, quota 10k, on an NVIDIA H100 80GB HBM3 at a 700 W power limit:
-#: the grid pair from 100-query waves at rungs 64 and (256, 16), the brute
-#: pair from one wave of 100 queries and one single query.
-GRID_NS_PER_CELL = 0.950
-GRID_NS_FIXED = 18.2e3
-BRUTE_NS_PER_ROW = 0.0587
-BRUTE_NS_FIXED = 3.91e6
+from columbiaimagesearch_tpu_torch.index.query import BRUTE_QCH, uses_lut
+from columbiaimagesearch_tpu_torch.utils.chunking import (
+    STORE_CHUNK,
+    store_capacity,
+)
+
+#: Cost model for the plan choice (brute vs probe ladder), both plans
+#: costed as one wave of nq queries, in ns:
+#:
+#:   brute = BRUTE_NS_WAVE + ceil(nq / BRUTE_QCH) * (BRUTE_NS_CHUNK
+#:                                   + rows * BRUTE_NS_CHUNK_PER_ROW)
+#:           + nq * rows * BRUTE_NS_PER_ROW
+#:   grid  = GRID_NS_WAVE_LUT or GRID_NS_WAVE_DIRECT
+#:           + nq * (GRID_NS_FIXED + GRID_NS_PER_CELL * G
+#:                   + GRID_NS_PER_SLOT * Q on the direct route)
+#:
+#: ``rows`` is what ``brute_query_batch`` scans, the store's capacity for
+#: nb rows (:func:`brute_rows`). Each chunk of BRUTE_QCH queries reads the
+#: whole store once (one matmul), so a wave shares that read; the top-k
+#: selection is per query. G is the starting rung's region
+#: (:func:`rung_cells`) and Q the wave's candidate budget. A rung whose
+#: candidates are scored through ADC tables (``query.uses_lut``) costs
+#: little per slot; the direct route scores each of its Q slots from
+#: rotated residuals and launches more per wave. Both sides are what
+#: ``search_batch`` takes for a wave on that plan, results included.
+#:
+#: Fitted by least squares of the relative error (:func:`fit_costs`) on
+#: 116 waves, each the median of 9 rounds timed with CUDA events, by
+#: ``chip_smoke.py`` ``phase_plan_costs`` on an NVIDIA H100 80GB HBM3 at a
+#: 700 W power limit: the trained release model's index (V=4096, M=8,
+#: D=256, float32 store) at nb 20,000, 262,144, 1,048,576 and 10,485,760,
+#: waves of 1, 16 and 100 queries, the brute pass and rungs 64, (128, 8),
+#: (256, 16) and (512, 32) at quotas 10,000 and 100,000 (limit 100,
+#: rerank depth 1,000); and ``eval_recall``'s 20,000 x 32 rows at V=16
+#: (bfloat16 store, quota 500) at 1, 16, 50 and 100 queries. Every brute
+#: wave of 1 ms or more is within 15% of the fit, every grid wave within
+#: 30% but two: the table route's rung 64 at 100 queries, whose cost
+#: grows with the rows in the probed cells (fit/measured 1.48 at 20,000
+#: rows, 0.49 at 1,048,576).
+BRUTE_NS_WAVE = 384e3
+BRUTE_NS_CHUNK = 1.447e6
+BRUTE_NS_CHUNK_PER_ROW = 0.2636
+BRUTE_NS_PER_ROW = 0.03287
+GRID_NS_WAVE_LUT = 3.488e6
+GRID_NS_WAVE_DIRECT = 3.956e6
+GRID_NS_FIXED = 33.0e3
+GRID_NS_PER_CELL = 0.4333
+GRID_NS_PER_SLOT = 5.587
+
+#: the constants' names in the order of :func:`brute_terms` and
+#: :func:`grid_terms`
+BRUTE_NAMES = ("BRUTE_NS_WAVE", "BRUTE_NS_CHUNK", "BRUTE_NS_CHUNK_PER_ROW",
+               "BRUTE_NS_PER_ROW")
+GRID_NAMES = ("GRID_NS_WAVE_LUT", "GRID_NS_WAVE_DIRECT", "GRID_NS_FIXED",
+              "GRID_NS_PER_CELL", "GRID_NS_PER_SLOT")
+
+
+def brute_rows(nb):
+    """Rows a brute pass scans over a single-device store of ``nb`` rows:
+    the capacity ``LOPQSearcherTorch`` plans for them."""
+    return store_capacity(nb, STORE_CHUNK)
+
+
+def brute_terms(nq, nb):
+    """The brute wave's terms, in the order of BRUTE_NAMES."""
+    rows = brute_rows(nb)
+    chunks = math.ceil(nq / BRUTE_QCH)
+    return (1, chunks, chunks * rows, nq * rows)
+
+
+def grid_terms(nq, V, spec, Q):
+    """The grid wave's terms at rung ``spec`` with a candidate budget of
+    ``Q`` a query, in the order of GRID_NAMES."""
+    B, SB = rung_parts(spec)
+    lut = uses_lut(B, SB, V, Q)
+    return (int(lut), int(not lut), nq, nq * rung_cells(spec, V),
+            0 if lut else nq * Q)
+
+
+def brute_wave_ns(nq, nb):
+    """The model's ns for a brute wave of ``nq`` queries over nb rows."""
+    return float(np.dot(brute_terms(nq, nb), (
+        BRUTE_NS_WAVE, BRUTE_NS_CHUNK, BRUTE_NS_CHUNK_PER_ROW,
+        BRUTE_NS_PER_ROW)))
+
+
+def grid_wave_ns(nq, V, spec, Q):
+    """The model's ns for a grid wave of ``nq`` queries at rung ``spec``."""
+    return float(np.dot(grid_terms(nq, V, spec, Q), (
+        GRID_NS_WAVE_LUT, GRID_NS_WAVE_DIRECT, GRID_NS_FIXED,
+        GRID_NS_PER_CELL, GRID_NS_PER_SLOT)))
+
+
+def fit_costs(terms, ns):
+    """Constants c >= 0 of a cost model ``terms @ c`` fitted to measured
+    wave times ``ns`` by least squares of the relative error (waves from
+    tens of microseconds to tens of milliseconds weigh alike). Exact
+    non-negative least squares: every subset of free constants is solved
+    and the best one with no negative constant kept.
+
+    :param terms: [n, k] each point's terms (:func:`brute_terms`,
+        :func:`grid_terms`)
+    :param ns: [n] measured times
+    :returns: [k] constants
+    """
+    ns = np.asarray(ns, np.float64)
+    A = np.asarray(terms, np.float64) / ns[:, None]
+    # Unit columns: the terms span ten orders of magnitude.
+    scale = np.linalg.norm(A, axis=0)
+    scale[scale == 0] = 1.0
+    k = A.shape[1]
+    best, best_err = None, np.inf
+    for free in itertools.product((False, True), repeat=k):
+        cols = np.flatnonzero(free)
+        if not len(cols):
+            continue
+        c = np.zeros(k)
+        c[cols] = np.linalg.lstsq(A[:, cols] / scale[cols],
+                                  np.ones(len(ns)), rcond=None)[0]
+        c /= scale
+        if (c < 0).any():
+            continue
+        err = float(np.sum((A @ c - 1.0) ** 2))
+        if err < best_err:
+            best, best_err = c, err
+    return best
 
 
 def rung_cells(spec, V):
@@ -34,17 +150,16 @@ def rung_cells(spec, V):
     return SB * SL + (B - SB) * B + (SL - B) * SB
 
 
-def prefer_brute(ladder_tail, nq, nb, V):
+def prefer_brute(ladder_tail, nq, nb, V, Q):
     """True when one exact brute wave over the feature store is cheaper
     than the grid ladder's starting rung for this wave. ``ladder_tail``
     is the ladder from its floor rung on (empty -> brute wins by
-    default). Both sides are per-query costs."""
+    default); ``Q`` is the wave's candidate budget a query. Both plans
+    are costed as a wave of ``nq`` queries."""
     if not ladder_tail:
         return True
-    brute_ns = BRUTE_NS_FIXED / max(nq, 1) + nb * BRUTE_NS_PER_ROW
-    g = rung_cells(ladder_tail[0], V)
-    grid_ns = GRID_NS_FIXED + GRID_NS_PER_CELL * g
-    return brute_ns < grid_ns
+    nq = max(nq, 1)
+    return brute_wave_ns(nq, nb) < grid_wave_ns(nq, V, ladder_tail[0], Q)
 
 
 #: Adaptive probe-width ladder. Rung spec: an int B (square B x B grid) or

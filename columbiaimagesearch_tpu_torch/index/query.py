@@ -46,6 +46,9 @@ from columbiaimagesearch_tpu_torch.index.lut import build_luts
 SORT_GRID_MAX_CELLS = 16384
 #: candidate budgets up to this size use LUTs (tpu_query.py:540)
 LUT_MAX_Q = 16384
+#: queries a brute pass scores against the whole store at once (bounds the
+#: [BRUTE_QCH, cap] score transient; tpu_query.py:695)
+BRUTE_QCH = 16
 
 
 def uses_lut(B, SB, V, Q):
@@ -379,7 +382,7 @@ def lopq_query_rerank(X, feats, Cs, Rs, mus, subs, codes, cell_start, order,
 
 
 def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
-                      QCH=16):
+                      QCH=BRUTE_QCH):
     """Exact top-``K_out`` by true L2 over the resident feature store.
 
     Two stages, like tpu_query.py:693-759: a preselect of ``K_pre`` rows
@@ -471,7 +474,7 @@ def fused_feat_query(X, pca_P, pca_mu, Cs, Rs, mus, subs, codes, cell_start,
 
 
 def fused_feat_brute(X, pca_P, pca_mu, feats, feats_sq, nb, n_occ, *,
-                     K_pre, K_out, QCH=16, renorm=False):
+                     K_pre, K_out, QCH=BRUTE_QCH, renorm=False):
     """Raw features -> exact brute search (tpu_query.py:762-779):
     :func:`normalize_project`, then :func:`brute_query_batch`."""
     return brute_query_batch(normalize_project(X, pca_P, pca_mu, renorm),

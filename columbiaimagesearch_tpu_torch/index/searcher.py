@@ -86,7 +86,12 @@ from columbiaimagesearch_tpu_torch.index.query import (
     unpack_query_out,
     uses_lut,
 )
-from columbiaimagesearch_tpu_torch.utils.chunking import round_up, wave_bucket
+from columbiaimagesearch_tpu_torch.utils.chunking import (
+    STORE_CHUNK,
+    round_up,
+    store_capacity,
+    wave_bucket,
+)
 from columbiaimagesearch_tpu_torch.utils.codes import (
     IncrementalDedup,
     code_dtype_for,
@@ -272,7 +277,7 @@ class LOPQSearcherTorch(LOPQSearcherBase):
     """Device-resident CSR multi-index with batched probed queries."""
 
     #: appended chunks are sentinel-padded to this multiple
-    CHUNK_QUANTUM = 8192
+    CHUNK_QUANTUM = STORE_CHUNK
     #: at/above this V the dense [V^2+1] offsets table (268 MB at V=8192,
     #: 1 GB at V=16384) gives way to searchsorted lookups over the sorted
     #: cell ids (wide-V mode, searcher.py:518-523)
@@ -380,9 +385,7 @@ class LOPQSearcherTorch(LOPQSearcherBase):
     def _plan_capacity(self, n):
         """Capacity (rows) for ``n`` occupied rows, shared by the host
         mirror and the device buffers."""
-        quantum = (1 << 20) if n >= (1 << 20) else 16384
-        return round_up(max(n + self.CHUNK_QUANTUM, self.capacity_hint),
-                        quantum)
+        return store_capacity(n, self.CHUNK_QUANTUM, self.capacity_hint)
 
     def _host_reserve(self, n_target, M, ids_obj=False):
         """Ensure the host mirror holds ``n_target`` rows. Growth allocates
@@ -625,13 +628,14 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         if not R or d.get("feats") is None or self.probe_width:
             return False
         ladder = self._probe_ladder()
+        Q = _query_geometry(quota, None, nb, R)[1]
         with self._mutlock:
             floor = rung_floor(ladder, quota, nb, self.model.V,
                                self._yield_ema)
             # Cost the rung the wave will actually start at.
             start = max(floor, self._tier_hint)
             if start > floor and prefer_brute(ladder[start:], nq, nb,
-                                              self.model.V):
+                                              self.model.V, Q):
                 # Hint-driven brute waves bypass the ladder; every
                 # REPROBE_EVERY-th one runs the ladder from the floor so
                 # the hint can decay.
@@ -640,7 +644,7 @@ class LOPQSearcherTorch(LOPQSearcherBase):
                     self._force_reprobe = True
                     return False
                 return True
-        return prefer_brute(ladder[start:], nq, nb, self.model.V)
+        return prefer_brute(ladder[start:], nq, nb, self.model.V, Q)
 
     def _pca_args(self):
         """(pca_P, pca_mu, renorm) of the fused raw-feature path."""

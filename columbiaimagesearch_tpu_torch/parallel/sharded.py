@@ -77,7 +77,11 @@ from columbiaimagesearch_tpu_torch.index.searcher import (
 )
 from columbiaimagesearch_tpu_torch.ops.kmeans import _assign_rows, _pick_chunk
 from columbiaimagesearch_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
-from columbiaimagesearch_tpu_torch.utils.chunking import round_up, wave_bucket
+from columbiaimagesearch_tpu_torch.utils.chunking import (
+    round_up,
+    store_capacity,
+    wave_bucket,
+)
 from columbiaimagesearch_tpu_torch.utils.codes import (
     IncrementalDedup,
     ids_to_object_array,
@@ -290,9 +294,7 @@ class ShardedLOPQIndex:
     def _plan_capacity(self, n):
         """Global-row capacity for ``n`` occupied rows: the single-device
         plan (a size-scaled quantum plus ``capacity_hint``)."""
-        quantum = (1 << 20) if n >= (1 << 20) else 16384
-        return int(round_up(max(n + self.CHUNK_QUANTUM,
-                                self.capacity_hint), quantum))
+        return int(store_capacity(n, self.CHUNK_QUANTUM, self.capacity_hint))
 
     def _host_reserve(self, n_target, M, ids_obj=False):
         """Capacity-padded host mirror, appended in place; growth
@@ -535,18 +537,27 @@ class ShardedLOPQIndex:
             return False
         ladder = self._probe_ladder()
         nb_shard = -(-nb // len(self.devices))
+        Q = self._shard_budget(quota, self._cap_per)
         with self._mutlock:
             floor = rung_floor(ladder, quota, nb, self.model.V,
                                self._yield_ema)
             start = max(floor, self._tier_hint)
             if start > floor and prefer_brute(ladder[start:], nq, nb_shard,
-                                              self.model.V):
+                                              self.model.V, Q):
                 self._brute_i += 1
                 if self._brute_i % self.REPROBE_EVERY == 0:
                     self._force_reprobe = True
                     return False
                 return True
-        return prefer_brute(ladder[start:], nq, nb_shard, self.model.V)
+        return prefer_brute(ladder[start:], nq, nb_shard, self.model.V, Q)
+
+    @staticmethod
+    def _shard_budget(quota, cap_per):
+        """A shard's candidate budget: each shard scans its own CSR, so the
+        budget scales with the shard's capacity, not the global index
+        size."""
+        return min(round_up(int(quota * 1.5) + 256, 1024),
+                   round_up(max(cap_per, 256), 256))
 
     def _wave_cap(self, Q, K):
         """Per-launch query cap: the single device's rule on the device
@@ -590,12 +601,9 @@ class ShardedLOPQIndex:
             raise ValueError(
                 "rerank_nb requires a resident feature store "
                 "(append(..., feats=...) for every append)")
-        # Each shard scans its own CSR, so the candidate budget scales with
-        # the shard's capacity, not the global index size.
-        Q_shard = min(round_up(int(quota * 1.5) + 256, 1024),
-                      round_up(max(cap_per, 256), 256))
         K, Q, K_stage, R, K_emit = _query_geometry(
-            quota, limit, max(nb, 1), rerank_nb, Q=Q_shard)
+            quota, limit, max(nb, 1), rerank_nb,
+            Q=self._shard_budget(quota, cap_per))
         K_pad = K_emit if R else K_stage
 
         if not _prewarm and self._use_brute(d, nq, quota, nb, R):

@@ -27,6 +27,7 @@ import pytest
 import chip_smoke
 from columbiaimagesearch_tpu_torch.index import eval_recall, probe
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+from columbiaimagesearch_tpu_torch.index.searcher import _query_geometry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--n", "20000", "--dim", "32", "--V", "16", "--train-n", "4000",
@@ -91,6 +92,14 @@ def test_block_draw_holds_the_rows_and_one_block(monkeypatch):
     assert limit < n * dim * 8
 
 
+def _port_plan(ladder_tail, nq, nb, V):
+    """The port's plan choice for a rerank wave of the recall run (quota
+    ``--quota``, rerank depth ``RERANK_NB``), in JAX's signature."""
+    Q = _query_geometry(int(ARGS[ARGS.index("--quota") + 1]), None, nb,
+                        eval_recall.RERANK_NB)[1]
+    return probe.prefer_brute(ladder_tail, nq, nb, V, Q)
+
+
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The JAX script's artifact at ARGS and its trained model."""
@@ -111,14 +120,14 @@ def jax_run(tmp_path_factory):
                 super().__init__(model, *a, **kw)
 
         mp.setattr(jax_searcher, "LOPQSearcherTPU", Recording)
-        # The rerank plan (one exact brute pass or the probe ladder) is
-        # costed by each package's own constants: JAX's were measured on
-        # its chip, the port's on the H100, and at 20,000 rows JAX's pick
-        # the brute pass where the port's pick the ladder. The JAX run
-        # takes the port's constants, so both rerank rows run one plan.
-        for name in ("GRID_NS_PER_CELL", "GRID_NS_FIXED",
-                     "BRUTE_NS_PER_ROW", "BRUTE_NS_FIXED"):
-            mp.setattr(jax_tpu_query, name, getattr(probe, name))
+        # The rerank row's plan (one exact brute pass or the probe ladder)
+        # is costed by each package's own model. For this 50-query wave
+        # the H100 measures the two plans equal, and the port's fitted
+        # costs pick the ladder where JAX's pick the brute pass (PERF.md,
+        # "Plan costs"). The JAX run takes the port's choice, so both
+        # rerank rows run one plan; tests/test_torch_plan_choice.py holds
+        # the choice.
+        mp.setattr(jax_tpu_query, "prefer_brute", _port_plan)
         out = tmp_path_factory.mktemp("jax") / "recall.json"
         mp.setattr(sys, "argv", ["eval_recall.py", *ARGS, "--cpu", "--out",
                                  str(out)])
