@@ -63,10 +63,17 @@ V=256, M=8, S=256, D=128). Phases:
    trained and a seeded model on the same 1,048,576-row sub-index (the
    trained one may not fall more than 0.01 below at 100) and for the
    trained model on the full index;
-4. numbers: p50 latencies and the probe plan's cost constants, and one
+4. numbers: p50 latencies, and one
    32-query wave at a pinned B=256 (the sort-free wide square path) whose
    selected cells, totals, n_cells and grid_ok must equal a plain sorted
    walk of the same 256 x 256 region;
+4a. plan costs (PLAN_COSTS, PLAN_STORES, PLAN_SMALL): brute and pinned
+   rung waves through ``search_batch`` over float32, bfloat16 and the face
+   conf's D=128 stores and the recall test's config, ``index/probe.py``'s
+   cost model fitted to them; the brute pass at its own chunk width equal
+   to 16-query chunks (float32 near-ties counted); at 18 choice points
+   the picked plan within 1.5x of the other, and the recall config's
+   50-query rerank wave on the brute pass;
 5. memory: each rung's peak device transients per query (rung 256
    included) against the searcher's wave model (``_bytes_per_query``);
 6. profile: a torch.profiler trace of one steady-state ``search_batch``
@@ -1677,15 +1684,17 @@ def phase_numbers(dev, cfg, state, card):
 #: once a round for ``rounds`` rounds after one warm-up round (a point's
 #: median; the rounds spread the host's slow spells over every point);
 #: probe.py's cost model is fitted to them, and whether it comes within
-#: ``fit_rtol`` of every point of ``fit_min_ms`` or more is logged (the
-#: host-bound waves move by a third from one machine to the next). Then
+#: ``fit_rtol`` (by plan) of every point of ``fit_min_ms`` or more, rung
+#: 64's table route at the most queries aside, is logged with the points
+#: outside (the host-bound waves move by a third from one machine to the
+#: next). Then
 #: the plan choice, the phase's check, at each of ``choice_nbs`` x
 #: ``choice_quotas`` x ``choice_nqs``: ``runs`` waves forced onto each
 #: plan, the picked plan's median at most ``ratio`` times the other's
 PLAN_COSTS = dict(nbs=(20_000, 262_144, 1_048_576, 10_485_760),
                   nqs=(1, 16, 100), quotas=(10_000, 100_000),
                   rungs=(64, (128, 8), (256, 16), (512, 32)), rounds=9,
-                  fit_rtol=0.30, fit_min_ms=1.0,
+                  fit_rtol=dict(brute=0.15, grid=0.30), fit_min_ms=1.0,
                   choice_nbs=(20_000, 1_048_576, 10_485_760),
                   choice_nqs=(1, 100), choice_quotas=(10_000, 100_000),
                   small_nqs=(1, 16, 50, 100), runs=7, ratio=1.5)
@@ -1695,6 +1704,16 @@ PLAN_COSTS = dict(nbs=(20_000, 262_144, 1_048_576, 10_485_760),
 #: store, its 50 queries and a single one, quota 500
 PLAN_SMALL = dict(n=20_000, dim=32, V=16, M=8, train_n=4000, queries=50,
                   noise=0.25, quota=500, dtype="bfloat16")
+#: two stores of 512-byte rows beside the headline's 1 KB rows (the brute
+#: pass's cost follows the bytes it reads): the headline's rows in a
+#: bfloat16 store (``_plan_rerank_dtype``'s pick past the memory budget)
+#: at the headline's rungs, and the face conf's float32 D=128 store (the
+#: trained face model over rows of its mixture drawn from ``seed``) at
+#: ``face_rungs``; brute and rung waves at ``nbs`` x PLAN_COSTS' nqs,
+#: quota 10,000; the plan choice at ``choice_nb`` for PLAN_COSTS'
+#: choice_nqs
+PLAN_STORES = dict(nbs=(20_000, 262_144), face_rungs=(64, (128, 8)),
+                   choice_nb=262_144, seed=16)
 
 
 def plan_searchers(s, nbs):
@@ -1738,6 +1757,91 @@ class kept_policy:
     def __exit__(self, *exc):
         for k, v in self.keep.items():
             setattr(self.s, k, v)
+
+
+def store_searchers(s, face, dev, cfg=None):
+    """PLAN_STORES' searchers, by (name, nb): ``"bf16"`` over the first nb
+    rows of searcher ``s``'s index in a bfloat16 store, ``"face"`` over
+    the face model's codes of nb fresh mixture rows in a float32 store;
+    and each store's queries (``"bf16"``'s are ``s``'s draw)."""
+    from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
+    from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+    cfg = cfg or PLAN_STORES
+    V = s.model.V
+    model = face["model"]
+    g = torch.Generator(device=dev).manual_seed(cfg["seed"])
+    n = max(cfg["nbs"])
+    rows = mixture(n + max(PLAN_COSTS["nqs"]), face["comp"], g)
+    rows, queries = rows[:n], rows[n:]
+    coarse, fine = lopq_encode(model.Cs, model.Rs, model.mus, model.subs,
+                               rows, chunk=ENCODE_CHUNK)
+    coarse = coarse.cpu().numpy()
+    fine = fine.to(torch.uint8).cpu().numpy()
+    out = {}
+    for nb in cfg["nbs"]:
+        cells = s._cells[:nb]
+        for name, m, codes, feats, dt in (
+                ("bf16", s.model, (np.stack([cells // V, cells % V], axis=1),
+                                   s._fine[:nb]), s._dev["feats"][:nb],
+                 "bfloat16"),
+                ("face", model, (coarse[:nb], fine[:nb]), rows[:nb],
+                 "float32")):
+            ss = LOPQSearcherTorch(m, rerank_dtype=dt)
+            ss.add_codes(codes, feats=feats)
+            if (ss.get_nb_indexed() != nb
+                    or ss._dev["feats"].dtype != getattr(torch, dt)):
+                raise AssertionError(f"plan costs: the {name} store holds "
+                                     f"{ss.get_nb_indexed()} "
+                                     f"{ss._dev['feats'].dtype} rows, want "
+                                     f"{nb} {dt}")
+            out[name, nb] = ss
+    return out, queries
+
+
+def brute_chunk_check(searchers, card):
+    """Each searcher's brute pass over a wave (``searchers``: (label,
+    searcher, queries, quota, limit, rerank depth)) at the pass's own
+    chunk width and at BRUTE_QCH:
+    the same ids but for swaps of rows at float32 near-ties (within
+    BRUTE_TIE_ATOL), counted; equal occupied cells. Returns the swaps by
+    label."""
+    from columbiaimagesearch_tpu_torch.index.query import (
+        BRUTE_QCH,
+        brute_chunk,
+        brute_query_batch,
+        unpack_query_out,
+    )
+    from columbiaimagesearch_tpu_torch.index.searcher import (
+        ResultDist as Result,
+        _query_geometry,
+    )
+
+    ties = {}
+    for label, s, X, q, lim, r in searchers:
+        d, nb = s._dev, s.nb_indexed
+        _K, _Q, _Ks, R, K_emit = _query_geometry(q, lim, nb, r)
+        feats = d["feats"]
+        width = brute_chunk(X.shape[0], feats.shape[0], R, feats.shape[1])
+        outs = []
+        for qch in (None, BRUTE_QCH):
+            rows, dists, _t, cells, _ok = unpack_query_out(
+                brute_query_batch(X, feats, d["feats_sq"], nb, d["n_occ"],
+                                  K_pre=R, K_out=K_emit, QCH=qch)
+                .cpu().numpy(), K_emit)
+            outs.append([([Result(int(i), None, float(x))
+                           for i, x in zip(rr, dd) if i >= 0], int(c))
+                         for rr, dd, c in zip(rows, dists, cells)])
+        _, ties[label] = _same_ids_but_ties(
+            outs[0], outs[1], BRUTE_TIE_ATOL,
+            f"brute pass at width {width} vs {BRUTE_QCH}, {label}")
+        if any(a[1] != b[1] for a, b in zip(*outs)):
+            raise AssertionError(f"brute pass, {label}: occupied cells "
+                                 f"differ between chunk widths")
+        log(f"plan costs: brute pass {label}, {X.shape[0]} queries: one "
+            f"chunk of {width} equal to chunks of {BRUTE_QCH} but "
+            f"{ties[label]} swaps of rows at float32 near-ties [{card}]")
+    return ties
 
 
 def rerank_wave(s, X, quota, limit, rnb):
@@ -1788,7 +1892,8 @@ def plan_points(cases, rounds, seed=0):
     events around the searcher's wave) in a shuffled order, after a
     warm-up round, so a slow spell of the host or a wave that follows a
     long one lands on a different case each round. Returns one dict a
-    case: plan, nq, nb, V, rung, quota, Q (the candidate budget), ms."""
+    case: plan, nq, nb, V, the store's D and itemsize, K_pre (the rerank
+    depth), rung, quota, Q (the candidate budget), ms."""
     from columbiaimagesearch_tpu_torch.index.searcher import _query_geometry
 
     rng = np.random.default_rng(seed)
@@ -1805,27 +1910,43 @@ def plan_points(cases, rounds, seed=0):
     out = []
     for (s, X, plan, r, q, limit, rnb), t in zip(cases, times):
         nb = s.nb_indexed
+        _K, Q, _Ks, R, _Ke = _query_geometry(q, limit, nb, rnb)
+        feats = s._dev["feats"]
         out.append(dict(plan=plan, nq=X.shape[0], nb=nb, V=s.model.V,
-                        rung=r, quota=q,
-                        Q=_query_geometry(q, limit, nb, rnb)[1],
+                        D=feats.shape[1], itemsize=feats.element_size(),
+                        K_pre=R, rung=r, quota=q, Q=Q,
                         ms=float(np.median(t))))
     return out
 
 
-def plan_choice(s, X, quota, limit, rnb, runs, sync):
+def plan_choice(s, X, quota, limit, rnb, runs):
     """Searcher ``s``'s rerank wave forced onto each plan (the real
-    ladder, escalation included), ``runs`` host-clock times each taken in
-    turns after a warm-up of each, and the plan an unforced wave picks;
-    the searcher's policy state is restored afterwards. Returns
-    dict(picked "brute" or "ladder", brute_ms and ladder_ms medians,
-    ratio of the picked plan's median to the other's)."""
+    ladder, escalation included), ``runs`` waves each taken in turns
+    after a warm-up of each, every one timed by the host clock and by
+    CUDA events, and the plan an unforced wave picks; the searcher's
+    policy state is restored afterwards. Returns dict(picked "brute" or
+    "ladder", costed: the rung the choice costed the ladder at, brute_ms
+    and ladder_ms host-clock medians, brute_event_ms and
+    ladder_event_ms, ratio of the picked plan's host median to the
+    other's)."""
+    from columbiaimagesearch_tpu_torch.index import searcher as smod
+
     wave = rerank_wave(s, X, quota, limit, rnb)
+    costed = []
+
+    def spy(tail, *a, **k):
+        costed.append(tail[0] if tail else None)
+        return real(tail, *a, **k)
+
+    real = smod.prefer_brute
 
     def forced(plan):
         with contextlib.ExitStack() as st:
             for p in plan_patches(s, None if plan == "brute" else plan):
                 st.enter_context(p)
-            return host_ms(wave, 1, sync)[0]
+            t0 = time.perf_counter()
+            ev = event_ms(wave)
+            return (time.perf_counter() - t0) * 1e3, ev
 
     with kept_policy(s):
         for plan in ("ladder", "ladder", "brute"):   # the tier hint settles
@@ -1836,19 +1957,25 @@ def plan_choice(s, X, quota, limit, rnb, runs, sync):
                          ("ladder", "brute")):
                 ts[plan].append(forced(plan))
         before = s.probe_stats.get("brute_waves", 0)
-        wave()
+        with mock.patch.object(smod, "prefer_brute", spy):
+            wave()
         picked = ("brute" if s.probe_stats.get("brute_waves", 0) > before
                   else "ladder")
-    b_ms, l_ms = float(np.median(ts["brute"])), float(np.median(ts["ladder"]))
-    return dict(picked=picked, brute_ms=b_ms, ladder_ms=l_ms,
+    (b_ms, b_ev), (l_ms, l_ev) = (np.median(ts[p], axis=0).tolist()
+                                  for p in ("brute", "ladder"))
+    return dict(picked=picked, costed=costed[-1] if costed else None,
+                brute_ms=b_ms, ladder_ms=l_ms,
+                brute_event_ms=b_ev, ladder_event_ms=l_ev,
                 ratio=b_ms / l_ms if picked == "brute" else l_ms / b_ms)
 
 
 def choice_text(c, pc):
-    return (f"quota={c['quota']} nq={c['nq']}: picked {c['picked']}; brute "
+    return (f"quota={c['quota']} nq={c['nq']}: picked {c['picked']} "
+            f"(the ladder costed at rung {c['costed']}); brute "
             f"median {c['brute_ms']:.3f} ms, ladder median "
-            f"{c['ladder_ms']:.3f} ms (host clock, {pc['runs']} each); "
-            f"picked/other {c['ratio']:.3f}")
+            f"{c['ladder_ms']:.3f} ms (host clock; CUDA events "
+            f"{c['brute_event_ms']:.3f} / {c['ladder_event_ms']:.3f} ms; "
+            f"{pc['runs']} each); picked/other {c['ratio']:.3f}")
 
 
 def recall_config_searcher(dev, cfg):
@@ -1873,40 +2000,64 @@ def plan_terms(p, committed=False):
     from columbiaimagesearch_tpu_torch.index import probe
 
     if p["plan"] == "brute":
-        args = (p["nq"], p["nb"])
+        args = (p["nq"], p["nb"], p["D"], p["itemsize"], p["K_pre"])
         return (probe.brute_wave_ns if committed else probe.brute_terms)(*args)
     args = (p["nq"], p["V"], p["rung"], p["Q"])
     return (probe.grid_wave_ns if committed else probe.grid_terms)(*args)
 
 
-def phase_plan_costs(dev, cfg, state, card, pc=None, small=None):
+def phase_plan_costs(dev, cfg, state, card, face, pc=None, small=None,
+                     stores=None):
     """Fit probe.py's plan cost model on the card, and hold the plan
     choice to it: the plan a wave picks is never more than
-    ``PLAN_COSTS["ratio"]`` times slower than the other. The points are
-    the headline's grid and the recall test's configuration (PLAN_SMALL:
-    brute and its one rung at 1 to 100 queries)."""
+    ``PLAN_COSTS["ratio"]`` times slower than the other, and the recall
+    test's 50-query rerank wave takes the brute pass. The points are the
+    headline's grid, two stores of 512-byte rows (PLAN_STORES, ``face``
+    the trained face model's state) and the recall test's configuration
+    (PLAN_SMALL: brute and its one rung at 1 to 100 queries). The brute
+    pass's output at its own chunk width is held to 16-query chunks' at
+    each store."""
     from columbiaimagesearch_tpu_torch.index import eval_recall as er
     from columbiaimagesearch_tpu_torch.index import probe
+    from columbiaimagesearch_tpu_torch.index.query import uses_lut
 
     pc = pc or PLAN_COSTS
     small = small or PLAN_SMALL
+    stores = stores or PLAN_STORES
     s = state["searcher"]
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     lim, rnb = cfg["limit"], cfg["rerank_nb"]
+    q0 = pc["quotas"][0]
     t0 = time.perf_counter()
     made = plan_searchers(s, sorted(set(pc["nbs"]) | set(pc["choice_nbs"])))
+    more, Xf = store_searchers(s, face, dev, stores)
     ss, Xs = recall_config_searcher(dev, small)
-    sync()
-    log(f"plan costs: searchers over {sorted(made)} rows and the recall "
-        f"config's in {time.perf_counter() - t0:.1f}s")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"plan costs: searchers over {sorted(made)} rows, the bfloat16 and "
+        f"face stores over {list(stores['nbs'])} and the recall config's "
+        f"in {time.perf_counter() - t0:.1f}s")
     X = state["draw"](max(max(pc["nqs"]), max(pc["choice_nqs"])))
     Xs2 = torch.cat([Xs, Xs])
-    cases = plan_cases(made, X, pc, lim, rnb) + [
-        (ss, Xs2[:nq], plan, small["V"] if plan == "grid" else None,
-         small["quota"], er.LIMIT, er.RERANK_NB)
-        for nq in pc["small_nqs"] for plan in ("brute", "grid")]
+    store_q = {"bf16": (X, pc["rungs"]), "face": (Xf, stores["face_rungs"])}
+    cases = plan_cases(made, X, pc, lim, rnb)
+    for (name, nb), sx in sorted(more.items()):
+        Xq, rungs = store_q[name]
+        for nq in pc["nqs"]:
+            cases.append((sx, Xq[:nq], "brute", None, q0, lim, rnb))
+            cases += [(sx, Xq[:nq], "grid", r, q0, lim, rnb) for r in rungs]
+    cases += [(ss, Xs2[:nq], plan, small["V"] if plan == "grid" else None,
+               small["quota"], er.LIMIT, er.RERANK_NB)
+              for nq in pc["small_nqs"] for plan in ("brute", "grid")]
+    nq_max = max(pc["nqs"])
+    ties = brute_chunk_check(
+        [(f"headline float32 nb={nb}", made[nb], X[:nq_max], q0, lim, rnb)
+         for nb in pc["nbs"]]
+        + [(f"{name} nb={nb}", sx, store_q[name][0][:nq_max], q0, lim, rnb)
+           for (name, nb), sx in sorted(more.items())]
+        + [("recall config", ss, Xs, small["quota"], er.LIMIT,
+            er.RERANK_NB)], card)
     pts = plan_points(cases, pc["rounds"])
-    fits, worst = {}, {}
+    fits, outside = {}, []
     for plan, names in (("brute", probe.BRUTE_NAMES),
                         ("grid", probe.GRID_NAMES)):
         mine = [p for p in pts if p["plan"] == plan]
@@ -1916,44 +2067,68 @@ def phase_plan_costs(dev, cfg, state, card, pc=None, small=None):
         for p, m in zip(mine, np.asarray(T, np.float64) @ c / 1e6):
             p["fit_ms"] = float(m)
             p["committed_ms"] = plan_terms(p, committed=True) / 1e6
-            log(f"plan costs: {plan} V={p['V']} nb={p['nb']} nq={p['nq']} "
+            log(f"plan costs: {plan} V={p['V']} D={p['D']} "
+                f"{8 * p['itemsize']}-bit nb={p['nb']} nq={p['nq']} "
                 f"rung={p['rung']} quota={p['quota']}: measured "
                 f"{p['ms']:.4f} ms, fit {m:.4f} ms (fit/measured "
                 f"{m / p['ms']:.3f}), committed model "
                 f"{p['committed_ms']:.4f} ms [{card}]")
-        held = [(round(abs(p["fit_ms"] - p["ms"]) / p["ms"], 3), p)
-                for p in mine
-                if p["ms"] >= pc["fit_min_ms"]]
-        worst[plan] = max(held, key=lambda x: x[0]) if held else None
+            err = abs(m - p["ms"]) / p["ms"]
+            if p["ms"] >= pc["fit_min_ms"] and err > pc["fit_rtol"][plan]:
+                B, SB = probe.rung_parts(p["rung"] or 0)
+                known = (plan == "grid" and p["rung"] == 64
+                         and p["nq"] == max(pc["nqs"])
+                         and uses_lut(B, SB, p["V"], p["Q"]))
+                outside.append(dict(p, err=round(err, 3), known=known))
+    within = all(o["known"] for o in outside)
     log("plan costs: constants to commit in index/probe.py: "
         + json.dumps(fits))
-    within = all(w is None or w[0] <= pc["fit_rtol"] for w in worst.values())
     log(f"plan costs: the fit within {pc['fit_rtol']} of every point of "
-        f"{pc['fit_min_ms']} ms or more: {within}; worst: brute "
-        f"{worst['brute']}, grid {worst['grid']}")
+        f"{pc['fit_min_ms']} ms or more but rung 64's table route at "
+        f"{max(pc['nqs'])} queries: {within}; outside: "
+        + json.dumps([{k: o[k] for k in ("plan", "V", "D", "itemsize",
+                                          "nb", "nq", "rung", "ms",
+                                          "fit_ms", "err", "known")}
+                      for o in outside]))
     choice = []
-    for nb in pc["choice_nbs"]:
-        for quota in pc["choice_quotas"]:
+    for sx, Xq, nbs, extra in (
+            [(made[nb], X, nb, {}) for nb in pc["choice_nbs"]]
+            + [(more[name, stores["choice_nb"]], store_q[name][0],
+                stores["choice_nb"], {"store": name})
+               for name in ("bf16", "face")]):
+        for quota in (pc["choice_quotas"] if not extra else (q0,)):
             for nq in pc["choice_nqs"]:
-                c = plan_choice(made[nb], X[:nq], quota, lim, rnb,
-                                pc["runs"], sync)
-                choice.append(dict(c, nb=nb, quota=quota, nq=nq))
-                log(f"plan choice: nb={nb} " + choice_text(choice[-1], pc)
-                    + f" [{card}]")
+                c = plan_choice(sx, Xq[:nq], quota, lim, rnb, pc["runs"])
+                choice.append(dict(c, nb=nbs, quota=quota, nq=nq, **extra))
+                log(f"plan choice: nb={nbs} "
+                    + (f"{extra['store']} store, " if extra else "")
+                    + choice_text(choice[-1], pc) + f" [{card}]")
     for nq in (1, small["queries"]):
         c = plan_choice(ss, Xs[:nq], small["quota"], er.LIMIT, er.RERANK_NB,
-                        pc["runs"], sync)
+                        pc["runs"])
         choice.append(dict(c, nb=small["n"], dim=small["dim"], V=small["V"],
                            quota=small["quota"], nq=nq))
         log(f"plan choice: recall config {small['n']} x {small['dim']} "
             f"rows, V={small['V']}, {small['dtype']} store, "
             + choice_text(choice[-1], pc) + f" [{card}]")
+    wave = choice[-1]
+    log(f"plan choice: the recall config's {small['queries']}-query rerank "
+        f"wave picks {wave['picked']}: brute median "
+        f"{wave['brute_event_ms']:.3f} ms, ladder median "
+        f"{wave['ladder_event_ms']:.3f} ms (CUDA events, {pc['runs']} "
+        f"each) [{card}]")
     bad = [c for c in choice if c["ratio"] > pc["ratio"]]
     if bad:
         raise AssertionError(f"plan choice: the picked plan is more than "
                              f"{pc['ratio']}x slower than the other at "
                              f"{bad}")
-    return dict(points=pts, fit=fits, fit_within=within, choice=choice)
+    if wave["picked"] != "brute":
+        raise AssertionError(f"plan choice: the recall config's "
+                             f"{small['queries']}-query wave took the "
+                             f"ladder, where JAX takes the brute pass: "
+                             f"{wave}")
+    return dict(points=pts, fit=fits, fit_within=within, outside=outside,
+                choice=choice, brute_ties=ties, recall_wave=wave)
 
 
 def plain_selection(s, X, quota, B):
@@ -5901,7 +6076,7 @@ def main():
     clock.lap("query_parity")
     phase_numbers(dev, cfg, state, card)
     clock.lap("numbers")
-    plan_costs = phase_plan_costs(dev, cfg, state, card)
+    plan_costs = phase_plan_costs(dev, cfg, state, card, trained["face"])
     clock.lap("plan_costs")
     phase_memory(dev, cfg, state, card)
     clock.lap("memory")
@@ -5983,7 +6158,8 @@ def main():
                                            power_limit=power.strip())}))
     log(json.dumps({"plan_costs": dict(
         fit=plan_costs["fit"], fit_within=plan_costs["fit_within"],
-        choice=plan_costs["choice"], card=name.strip(),
+        choice=plan_costs["choice"], brute_ties=plan_costs["brute_ties"],
+        card=name.strip(),
         power_limit=power.strip())}))
     log(json.dumps({"recall_parity": dict(parity, card=name.strip(),
                                           power_limit=power.strip())}))

@@ -12,7 +12,7 @@ import math
 
 import numpy as np
 
-from columbiaimagesearch_tpu_torch.index.query import BRUTE_QCH, uses_lut
+from columbiaimagesearch_tpu_torch.index.query import brute_chunk, uses_lut
 from columbiaimagesearch_tpu_torch.utils.chunking import (
     STORE_CHUNK,
     store_capacity,
@@ -21,17 +21,22 @@ from columbiaimagesearch_tpu_torch.utils.chunking import (
 #: Cost model for the plan choice (brute vs probe ladder), both plans
 #: costed as one wave of nq queries, in ns:
 #:
-#:   brute = BRUTE_NS_WAVE + ceil(nq / BRUTE_QCH) * (BRUTE_NS_CHUNK
-#:                                   + rows * BRUTE_NS_CHUNK_PER_ROW)
+#:   brute = BRUTE_NS_WAVE + nq * BRUTE_NS_QUERY
+#:           + chunks * (BRUTE_NS_CHUNK
+#:                       + rows * row_bytes * BRUTE_NS_CHUNK_PER_BYTE)
 #:           + nq * rows * BRUTE_NS_PER_ROW
 #:   grid  = GRID_NS_WAVE_LUT or GRID_NS_WAVE_DIRECT
 #:           + nq * (GRID_NS_FIXED + GRID_NS_PER_CELL * G
 #:                   + GRID_NS_PER_SLOT * Q on the direct route)
 #:
 #: ``rows`` is what ``brute_query_batch`` scans, the store's capacity for
-#: nb rows (:func:`brute_rows`). Each chunk of BRUTE_QCH queries reads the
-#: whole store once (one matmul), so a wave shares that read; the top-k
-#: selection is per query. G is the starting rung's region
+#: nb rows (:func:`brute_rows`), and ``row_bytes`` a stored row's bytes
+#: (D x the store's itemsize). A wave runs in ``chunks`` of the width
+#: ``query.brute_chunk`` gives the pass itself: one chunk while the
+#: chunk's transients stay small, else chunks of BRUTE_QCH queries. Each
+#: chunk reads the whole store once (one matmul) and pays its launches;
+#: the top-k selection is per query, and so are the host's unpacking and
+#: result rows (BRUTE_NS_QUERY). G is the starting rung's region
 #: (:func:`rung_cells`) and Q the wave's candidate budget. A rung whose
 #: candidates are scored through ADC tables (``query.uses_lut``) costs
 #: little per slot; the direct route scores each of its Q slots from
@@ -39,32 +44,38 @@ from columbiaimagesearch_tpu_torch.utils.chunking import (
 #: ``search_batch`` takes for a wave on that plan, results included.
 #:
 #: Fitted by least squares of the relative error (:func:`fit_costs`) on
-#: 116 waves, each the median of 9 rounds timed with CUDA events, by
-#: ``chip_smoke.py`` ``phase_plan_costs`` on an NVIDIA H100 80GB HBM3 at a
+#: 164 waves, each the median of 9 rounds timed with CUDA events, by
+#: ``chip_smoke.py`` ``phase_plan_costs`` (run alone by
+#: ``scripts/torch_plan_costs.py``) on an NVIDIA H100 80GB HBM3 at a
 #: 700 W power limit: the trained release model's index (V=4096, M=8,
-#: D=256, float32 store) at nb 20,000, 262,144, 1,048,576 and 10,485,760,
-#: waves of 1, 16 and 100 queries, the brute pass and rungs 64, (128, 8),
-#: (256, 16) and (512, 32) at quotas 10,000 and 100,000 (limit 100,
-#: rerank depth 1,000); and ``eval_recall``'s 20,000 x 32 rows at V=16
-#: (bfloat16 store, quota 500) at 1, 16, 50 and 100 queries. Every brute
-#: wave of 1 ms or more is within 15% of the fit, every grid wave within
-#: 30% but two: the table route's rung 64 at 100 queries, whose cost
-#: grows with the rows in the probed cells (fit/measured 1.48 at 20,000
-#: rows, 0.49 at 1,048,576).
-BRUTE_NS_WAVE = 384e3
-BRUTE_NS_CHUNK = 1.447e6
-BRUTE_NS_CHUNK_PER_ROW = 0.2636
-BRUTE_NS_PER_ROW = 0.03287
-GRID_NS_WAVE_LUT = 3.488e6
-GRID_NS_WAVE_DIRECT = 3.956e6
-GRID_NS_FIXED = 33.0e3
-GRID_NS_PER_CELL = 0.4333
-GRID_NS_PER_SLOT = 5.587
+#: D=256) at nb 20,000, 262,144, 1,048,576 and 10,485,760 in a float32
+#: store and at 20,000 and 262,144 in a bfloat16 one, the trained face
+#: model's (V=256, D=128, float32 store) at 20,000 and 262,144, waves of
+#: 1, 16 and 100 queries, the brute pass and rungs 64, (128, 8), (256, 16)
+#: and (512, 32) (the face store: 64 and (128, 8)) at quota 10,000, the
+#: release index also at 100,000 (limit 100, rerank depth 1,000); and
+#: ``eval_recall``'s 20,000 x 32 rows at V=16 (bfloat16 store, quota 500)
+#: at 1, 16, 50 and 100 queries. Brute waves read 0.72-1.27 of the fit,
+#: the host-bound ones below ~4 ms the farthest; grid waves 0.61-1.46,
+#: 129 of 136 within 30%: six of the other seven take the table route at
+#: 100 queries, whose cost grows with the rows in the probed cells. The
+#: host-bound waves move by a third between machines (PERF.md, "Plan
+#: costs").
+BRUTE_NS_WAVE = 0.0
+BRUTE_NS_QUERY = 69.51e3
+BRUTE_NS_CHUNK = 2.899e6
+BRUTE_NS_CHUNK_PER_BYTE = 3.039e-4
+BRUTE_NS_PER_ROW = 0.02168
+GRID_NS_WAVE_LUT = 6.396e6
+GRID_NS_WAVE_DIRECT = 7.065e6
+GRID_NS_FIXED = 40.42e3
+GRID_NS_PER_CELL = 0.3911
+GRID_NS_PER_SLOT = 5.516
 
 #: the constants' names in the order of :func:`brute_terms` and
 #: :func:`grid_terms`
-BRUTE_NAMES = ("BRUTE_NS_WAVE", "BRUTE_NS_CHUNK", "BRUTE_NS_CHUNK_PER_ROW",
-               "BRUTE_NS_PER_ROW")
+BRUTE_NAMES = ("BRUTE_NS_WAVE", "BRUTE_NS_QUERY", "BRUTE_NS_CHUNK",
+               "BRUTE_NS_CHUNK_PER_BYTE", "BRUTE_NS_PER_ROW")
 GRID_NAMES = ("GRID_NS_WAVE_LUT", "GRID_NS_WAVE_DIRECT", "GRID_NS_FIXED",
               "GRID_NS_PER_CELL", "GRID_NS_PER_SLOT")
 
@@ -75,11 +86,13 @@ def brute_rows(nb):
     return store_capacity(nb, STORE_CHUNK)
 
 
-def brute_terms(nq, nb):
-    """The brute wave's terms, in the order of BRUTE_NAMES."""
+def brute_terms(nq, nb, D, itemsize, K_pre):
+    """The brute wave's terms, in the order of BRUTE_NAMES, over a store
+    of ``D``-wide rows of ``itemsize`` bytes each with ``K_pre`` survivors
+    a query (the rerank depth)."""
     rows = brute_rows(nb)
-    chunks = math.ceil(nq / BRUTE_QCH)
-    return (1, chunks, chunks * rows, nq * rows)
+    chunks = math.ceil(nq / brute_chunk(nq, rows, K_pre, D))
+    return (1, nq, chunks, chunks * rows * D * itemsize, nq * rows)
 
 
 def grid_terms(nq, V, spec, Q):
@@ -91,11 +104,13 @@ def grid_terms(nq, V, spec, Q):
             0 if lut else nq * Q)
 
 
-def brute_wave_ns(nq, nb):
-    """The model's ns for a brute wave of ``nq`` queries over nb rows."""
-    return float(np.dot(brute_terms(nq, nb), (
-        BRUTE_NS_WAVE, BRUTE_NS_CHUNK, BRUTE_NS_CHUNK_PER_ROW,
-        BRUTE_NS_PER_ROW)))
+def brute_wave_ns(nq, nb, D, itemsize, K_pre):
+    """The model's ns for a brute wave of ``nq`` queries over nb rows
+    (the store's width, itemsize and the survivors as in
+    :func:`brute_terms`)."""
+    return float(np.dot(brute_terms(nq, nb, D, itemsize, K_pre), (
+        BRUTE_NS_WAVE, BRUTE_NS_QUERY, BRUTE_NS_CHUNK,
+        BRUTE_NS_CHUNK_PER_BYTE, BRUTE_NS_PER_ROW)))
 
 
 def grid_wave_ns(nq, V, spec, Q):
@@ -150,16 +165,19 @@ def rung_cells(spec, V):
     return SB * SL + (B - SB) * B + (SL - B) * SB
 
 
-def prefer_brute(ladder_tail, nq, nb, V, Q):
+def prefer_brute(ladder_tail, nq, nb, V, Q, *, D, itemsize, K_pre):
     """True when one exact brute wave over the feature store is cheaper
     than the grid ladder's starting rung for this wave. ``ladder_tail``
     is the ladder from its floor rung on (empty -> brute wins by
-    default); ``Q`` is the wave's candidate budget a query. Both plans
-    are costed as a wave of ``nq`` queries."""
+    default); ``Q`` is the wave's candidate budget a query; the store
+    holds ``D``-wide rows of ``itemsize`` bytes, and the brute pass keeps
+    ``K_pre`` survivors a query. Both plans are costed as a wave of
+    ``nq`` queries."""
     if not ladder_tail:
         return True
     nq = max(nq, 1)
-    return brute_wave_ns(nq, nb) < grid_wave_ns(nq, V, ladder_tail[0], Q)
+    return (brute_wave_ns(nq, nb, D, itemsize, K_pre)
+            < grid_wave_ns(nq, V, ladder_tail[0], Q))
 
 
 #: Adaptive probe-width ladder. Rung spec: an int B (square B x B grid) or

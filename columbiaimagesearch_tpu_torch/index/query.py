@@ -46,9 +46,21 @@ from columbiaimagesearch_tpu_torch.index.lut import build_luts
 SORT_GRID_MAX_CELLS = 16384
 #: candidate budgets up to this size use LUTs (tpu_query.py:540)
 LUT_MAX_Q = 16384
-#: queries a brute pass scores against the whole store at once (bounds the
-#: [BRUTE_QCH, cap] score transient; tpu_query.py:695)
+#: queries a brute chunk scores against the whole store at once, at the
+#: least (tpu_query.py:695): a wave over a large store runs in chunks of
+#: this many queries
 BRUTE_QCH = 16
+#: bytes a brute chunk's transients may take, counted as its [QCH, cap]
+#: float32 preselect scores plus its [QCH, K_pre, D] float32 survivors
+#: (the pass's peak is ~2.5x that count). Within this bound a wave runs
+#: as one chunk (:func:`brute_chunk`): a chunk is 64 launches, ~0.8 ms of
+#: host time, more than the card spends on it below ~1M rows, where JAX
+#: runs every chunk in one program (tpu_query.py:758). 512 MiB is the
+#: largest power of two that keeps the headline's 10,485,760 rows
+#: (capacity 11,534,336, 46 MB of scores a query) at BRUTE_QCH queries a
+#: chunk, its memory unchanged; at 1,048,576 rows it gives 100 queries two
+#: chunks of 57 (PERF.md, "Plan costs").
+BRUTE_CHUNK_BYTES = 512 << 20
 
 
 def uses_lut(B, SB, V, Q):
@@ -57,6 +69,15 @@ def uses_lut(B, SB, V, Q):
     Otherwise candidate distances come from rotated residuals."""
     strips = min(SB, B) > 0 and B < V
     return not strips and B * B <= SORT_GRID_MAX_CELLS and Q <= LUT_MAX_Q
+
+
+def brute_chunk(nq, cap, K_pre, D):
+    """Queries a brute chunk scores at once over a store of ``cap`` rows
+    of width ``D`` with ``K_pre`` survivors a query: as many as the wave
+    holds while the chunk's transients stay within BRUTE_CHUNK_BYTES, and
+    never fewer than BRUTE_QCH (or the wave)."""
+    per_query = 4 * (cap + min(K_pre, cap) * D)
+    return min(max(nq, 1), max(BRUTE_QCH, BRUTE_CHUNK_BYTES // per_query))
 
 
 def _ascending(d, n):
@@ -382,7 +403,7 @@ def lopq_query_rerank(X, feats, Cs, Rs, mus, subs, codes, cell_start, order,
 
 
 def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
-                      QCH=BRUTE_QCH):
+                      QCH=None):
     """Exact top-``K_out`` by true L2 over the resident feature store.
 
     Two stages, like tpu_query.py:693-759: a preselect of ``K_pre`` rows
@@ -397,7 +418,8 @@ def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
     :param feats_sq: [cap] float32 row norms squared
     :param nb: occupied rows (rows >= nb are capacity pads)
     :param n_occ: occupied cells, reported as ``visited``
-    :param QCH: query-chunk size (bounds the [QCH, cap] score transient)
+    :param QCH: queries a chunk (None: :func:`brute_chunk`'s width); a
+        query's result does not depend on it
     :returns: packed [NQ, 2*K_out + 3] int32 (see pack_query_out); rows
         are insertion-order, dists true L2 norms
     """
@@ -405,7 +427,8 @@ def brute_query_batch(X, feats, feats_sq, nb, n_occ, *, K_pre, K_out,
     cap = feats.shape[0]
     K_pre = min(K_pre, cap)
     K_out = min(K_out, K_pre)
-    QCH = min(QCH, max(NQ, 1))
+    QCH = min(QCH or brute_chunk(NQ, cap, K_pre, feats.shape[1]),
+              max(NQ, 1))
     out = []
     for lo in range(0, NQ, QCH):
         Xc = X[lo:lo + QCH].to(torch.float32)
@@ -474,7 +497,7 @@ def fused_feat_query(X, pca_P, pca_mu, Cs, Rs, mus, subs, codes, cell_start,
 
 
 def fused_feat_brute(X, pca_P, pca_mu, feats, feats_sq, nb, n_occ, *,
-                     K_pre, K_out, QCH=BRUTE_QCH, renorm=False):
+                     K_pre, K_out, QCH=None, renorm=False):
     """Raw features -> exact brute search (tpu_query.py:762-779):
     :func:`normalize_project`, then :func:`brute_query_batch`."""
     return brute_query_batch(normalize_project(X, pca_P, pca_mu, renorm),

@@ -629,13 +629,16 @@ class LOPQSearcherTorch(LOPQSearcherBase):
             return False
         ladder = self._probe_ladder()
         Q = _query_geometry(quota, None, nb, R)[1]
+        feats = d["feats"]
+        store = dict(D=feats.shape[1], itemsize=feats.element_size(),
+                     K_pre=R)
         with self._mutlock:
             floor = rung_floor(ladder, quota, nb, self.model.V,
                                self._yield_ema)
             # Cost the rung the wave will actually start at.
             start = max(floor, self._tier_hint)
             if start > floor and prefer_brute(ladder[start:], nq, nb,
-                                              self.model.V, Q):
+                                              self.model.V, Q, **store):
                 # Hint-driven brute waves bypass the ladder; every
                 # REPROBE_EVERY-th one runs the ladder from the floor so
                 # the hint can decay.
@@ -644,7 +647,8 @@ class LOPQSearcherTorch(LOPQSearcherBase):
                     self._force_reprobe = True
                     return False
                 return True
-        return prefer_brute(ladder[start:], nq, nb, self.model.V, Q)
+        return prefer_brute(ladder[start:], nq, nb, self.model.V, Q,
+                            **store)
 
     def _pca_args(self):
         """(pca_P, pca_mu, renorm) of the fused raw-feature path."""

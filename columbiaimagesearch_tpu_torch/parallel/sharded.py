@@ -538,18 +538,22 @@ class ShardedLOPQIndex:
         ladder = self._probe_ladder()
         nb_shard = -(-nb // len(self.devices))
         Q = self._shard_budget(quota, self._cap_per)
+        feats = d["shards"][0]["feats"]
+        store = dict(D=feats.shape[1], itemsize=feats.element_size(),
+                     K_pre=R)
         with self._mutlock:
             floor = rung_floor(ladder, quota, nb, self.model.V,
                                self._yield_ema)
             start = max(floor, self._tier_hint)
             if start > floor and prefer_brute(ladder[start:], nq, nb_shard,
-                                              self.model.V, Q):
+                                              self.model.V, Q, **store):
                 self._brute_i += 1
                 if self._brute_i % self.REPROBE_EVERY == 0:
                     self._force_reprobe = True
                     return False
                 return True
-        return prefer_brute(ladder[start:], nq, nb_shard, self.model.V, Q)
+        return prefer_brute(ladder[start:], nq, nb_shard, self.model.V, Q,
+                            **store)
 
     @staticmethod
     def _shard_budget(quota, cap_per):

@@ -9,7 +9,9 @@
   width, the fused bfloat16 rerank) at n 20,000, dim 32, V 16: the JAX
   script runs whole once (its searcher class wrapped to record the
   model), and the port's stages on the JAX-trained model give each
-  artifact row within 0.05 of the JAX script's recall@k.
+  artifact row within 0.05 of the JAX script's recall@k. Each package
+  picks the rerank row's plan by its own cost model, and both take the
+  exact brute pass.
 - The parity rule ``chip_smoke.py`` holds the card's runs to: it passes on
   each JAX artifact compared with itself, and fails on a row moved past
   its bound, a missing row or a broken ordering.
@@ -25,9 +27,8 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from columbiaimagesearch_tpu_torch.index import eval_recall, probe
+from columbiaimagesearch_tpu_torch.index import eval_recall
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel
-from columbiaimagesearch_tpu_torch.index.searcher import _query_geometry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--n", "20000", "--dim", "32", "--V", "16", "--train-n", "4000",
@@ -92,14 +93,6 @@ def test_block_draw_holds_the_rows_and_one_block(monkeypatch):
     assert limit < n * dim * 8
 
 
-def _port_plan(ladder_tail, nq, nb, V):
-    """The port's plan choice for a rerank wave of the recall run (quota
-    ``--quota``, rerank depth ``RERANK_NB``), in JAX's signature."""
-    Q = _query_geometry(int(ARGS[ARGS.index("--quota") + 1]), None, nb,
-                        eval_recall.RERANK_NB)[1]
-    return probe.prefer_brute(ladder_tail, nq, nb, V, Q)
-
-
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The JAX script's artifact at ARGS and its trained model."""
@@ -107,7 +100,6 @@ def jax_run(tmp_path_factory):
     had_cache_env = "JAX_COMPILATION_CACHE_DIR" in os.environ
     try:
         from columbiaimagesearch_tpu.index import searcher as jax_searcher
-        from columbiaimagesearch_tpu.index import tpu_query as jax_tpu_query
 
         from scripts import eval_recall as jax_eval_recall
 
@@ -117,17 +109,10 @@ def jax_run(tmp_path_factory):
         class Recording(Base):
             def __init__(self, model, *a, **kw):
                 seen["model"] = model
+                seen["searcher"] = self
                 super().__init__(model, *a, **kw)
 
         mp.setattr(jax_searcher, "LOPQSearcherTPU", Recording)
-        # The rerank row's plan (one exact brute pass or the probe ladder)
-        # is costed by each package's own model. For this 50-query wave
-        # the H100 measures the two plans equal, and the port's fitted
-        # costs pick the ladder where JAX's pick the brute pass (PERF.md,
-        # "Plan costs"). The JAX run takes the port's choice, so both
-        # rerank rows run one plan; tests/test_torch_plan_choice.py holds
-        # the choice.
-        mp.setattr(jax_tpu_query, "prefer_brute", _port_plan)
         out = tmp_path_factory.mktemp("jax") / "recall.json"
         mp.setattr(sys, "argv", ["eval_recall.py", *ARGS, "--cpu", "--out",
                                  str(out)])
@@ -144,7 +129,16 @@ def jax_run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_runs(jax_run):
     """The port's stages on the JAX-trained model, as ``run`` calls them
-    (the fused rerank in bfloat16)."""
+    (the fused rerank in bfloat16), and the rerank stage's searcher."""
+    from columbiaimagesearch_tpu_torch.index import searcher as port_searcher
+
+    made = []
+
+    class Recording(port_searcher.LOPQSearcherTorch):
+        def __init__(self, *a, **kw):
+            made.append(self)
+            super().__init__(*a, **kw)
+
     jm = jax_run["model"]
     model = LOPQModel.from_numpy(jm.Cs, jm.Rs, jm.mus, jm.subquantizers,
                                  device="cpu")
@@ -155,23 +149,36 @@ def port_runs(jax_run):
     coarse, fine = eval_recall.encode(model, data)
     runs = eval_recall.probed_sweep(model, coarse, fine, data.queries, nns,
                                     [4, 16, 0], [500, 2000])
-    runs.append(eval_recall.probed_rerank(model, coarse, fine, data.X,
-                                          data.queries, nns, args.quota,
-                                          args.rerank_dtype))
-    return runs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_searcher, "LOPQSearcherTorch", Recording)
+        runs.append(eval_recall.probed_rerank(model, coarse, fine, data.X,
+                                              data.queries, nns, args.quota,
+                                              args.rerank_dtype))
+    return runs, made[-1]
 
 
 @pytest.mark.parametrize("row", range(7))
 def test_adversarial_rows_on_the_carried_model_match_jax(jax_run, port_runs,
                                                          row):
+    runs, _ = port_runs
     want = jax_run["artifact"]["runs"]
-    assert len(want) == len(port_runs) == 7
-    got, w = port_runs[row], want[row]
+    assert len(want) == len(runs) == 7
+    got, w = runs[row], want[row]
     for k in ("method", "probe_width", "rerank", "rerank_dtype"):
         assert got.get(k) == w.get(k)
     for k in (1, 10, 100):
         assert abs(got[f"recall@{k}"] - w[f"recall@{k}"]) <= RECALL_ATOL, (
             got, w)
+
+
+def test_rerank_row_takes_the_brute_pass_in_both(jax_run, port_runs):
+    """Each package costs the rerank row's 50-query wave with its own plan
+    model, and both run it as one exact brute pass (the warm-up wave and
+    the timed one)."""
+    for s in (jax_run["searcher"], port_runs[1]):
+        stats = s.probe_stats
+        assert stats["waves"] >= 1
+        assert stats.get("brute_waves", 0) == stats["waves"], stats
 
 
 def _artifact(name):

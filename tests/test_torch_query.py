@@ -15,6 +15,7 @@ import torch
 from columbiaimagesearch_tpu_torch.index.csr import build_csr
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel
 from columbiaimagesearch_tpu_torch.index.query import (
+    brute_chunk,
     brute_query_batch,
     lopq_query,
     lopq_query_orig,
@@ -153,6 +154,27 @@ def test_brute_query_batch_matches_jax(setup):
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
     for a, b in zip(got[2:], want[2:]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 16, None])
+def test_brute_result_does_not_depend_on_the_chunk_width(dtype, width):
+    """Chunks of 1 and 16 queries and the pass's own width (the whole
+    wave, this store being small) give the same packed output, bit for
+    bit, on a float32 and a bfloat16 store with capacity pad rows."""
+    rng = np.random.RandomState(5)
+    nb, cap, nq = 900, 1024, 40
+    fbuf = torch.zeros(cap, D, dtype=dtype)
+    fbuf[:nb] = torch.from_numpy(rng.randn(nb, D).astype(np.float32)).to(
+        dtype)
+    fsq = (fbuf.float() ** 2).sum(1)
+    X = torch.from_numpy(rng.randn(nq, D).astype(np.float32))
+    kw = dict(K_pre=128, K_out=32)
+    assert brute_chunk(nq, cap, 128, D) == nq
+    want = brute_query_batch(X, fbuf, fsq, nb, 9, QCH=nq, **kw)
+    got = brute_query_batch(X, fbuf, fsq, nb, 9, QCH=width, **kw)
+    assert got.dtype == torch.int32 and got.shape == (nq, 2 * 32 + 3)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_pack_unpack_roundtrip():
