@@ -13,13 +13,74 @@ timelines.
 ``device_trace`` replaces the JAX ``jax.profiler`` context (:87-97): it
 records the host and the card with ``torch.profiler`` and writes a chrome
 trace into ``logdir``.
+
+The search path opens named spans (:func:`span`, all named ``cis.*``)
+while a profiler records on the calling thread, and this module's
+``gc.callbacks`` hook spans every garbage collection (``cis.gc.<gen>``).
+They land in the same trace as the device's kernels and copies, on the
+same clock (category ``user_annotation``):
+
+- ``cis.search``: one wave of ``search_batch`` or ``search_device_feats``;
+- ``cis.ladder``: the probe ladder (``_escalate``);
+- ``cis.dispatch``: one launch, from the host enqueuing its ops to the
+  unpacked output; inside it ``cis.fetch``, the copy-out of the packed
+  output (the host waiting for the device);
+- ``cis.results``: the wave's result rows;
+- ``cis.gc.0``, ``cis.gc.1``, ``cis.gc.2``: a collection of that
+  generation.
+
+To read a ``device_trace``: the device is idle wherever no kernel, copy
+or memset runs; over each idle gap, the innermost ``cis.`` span open on
+the host's thread says what the host was doing (``cis.dispatch`` alone:
+enqueuing or unpacking; ``cis.gc.*``: collecting). With no profiler
+running a span costs one check of the profiler's flag and records
+nothing.
 """
 
 import contextlib
+import gc
 import json
 import os
 import time
 from collections import defaultdict
+
+import torch
+
+#: whether a profiler records on this thread (one C call)
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_GC_SPANS = ("cis.gc.0", "cis.gc.1", "cis.gc.2")
+
+
+def span(name):
+    """A ``torch.profiler.record_function(name)`` while a profiler records
+    on this thread, else a shared context that does nothing. ``name``
+    starts with ``cis.`` and carries no value (a span's arguments do not
+    reach the chrome trace)."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+#: the record that the running collection's ``start`` entered, if any
+_gc_open = []
+
+
+def _gc_span(phase, info):
+    """``gc.callbacks`` hook: a collection is the span ``cis.gc.<gen>``
+    while a profiler records. ``stop`` exits only a record that its
+    ``start`` entered (a profiler may start or stop during a
+    collection)."""
+    if phase == "start":
+        if _recording():
+            _gc_open.append(torch.ops.profiler._record_function_enter_new(
+                _GC_SPANS[info["generation"]], None))
+    elif _gc_open:
+        torch.ops.profiler._record_function_exit._RecordFunction(
+            _gc_open.pop())
+
+
+gc.callbacks.append(_gc_span)
 
 
 class StageTimer:
@@ -96,9 +157,9 @@ def device_trace(logdir, name="trace"):
     """``torch.profiler`` over the block, host and card (the card only
     when CUDA is available); on exit the chrome trace goes to
     ``<logdir>/<name>.json``. Yields the profiler, whose
-    ``key_averages()`` sums the recorded ops."""
-    import torch
-
+    ``key_averages()`` sums the recorded ops. The trace carries the
+    search path's ``cis.`` spans and the collections' (see the module
+    docstring for how to read its idle gaps)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

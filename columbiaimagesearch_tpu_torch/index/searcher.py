@@ -61,6 +61,7 @@ from itertools import count
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.common.profiling import span
 from columbiaimagesearch_tpu_torch.device import device_bytes, free_bytes
 from columbiaimagesearch_tpu_torch.index.csr import (
     append_and_build_csr,
@@ -662,22 +663,24 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         queries, or raw features when ``raw`` (normalize and PCA on the
         device, the serving fast path). ``count_stats=False`` (prewarm)
         keeps warm-up launches out of the probe stats."""
-        if raw:
-            pca_P, pca_mu, renorm = self._pca_args()
-            packed = fused_feat_brute(
-                X, pca_P, pca_mu, d["feats"], d["feats_sq"], nb, d["n_occ"],
-                K_pre=R, K_out=K_emit, renorm=renorm)
-        else:
-            packed = brute_query_batch(
-                X, d["feats"], d["feats_sq"], nb, d["n_occ"], K_pre=R,
-                K_out=K_emit)
-        packed = packed.cpu().numpy()
-        if count_stats:
-            with self._mutlock:
-                self.probe_stats["waves"] += 1
-                self.probe_stats["brute_waves"] = (
-                    self.probe_stats.get("brute_waves", 0) + 1)
-        return unpack_query_out(packed, K_emit)
+        with span("cis.dispatch"):
+            if raw:
+                pca_P, pca_mu, renorm = self._pca_args()
+                packed = fused_feat_brute(
+                    X, pca_P, pca_mu, d["feats"], d["feats_sq"], nb,
+                    d["n_occ"], K_pre=R, K_out=K_emit, renorm=renorm)
+            else:
+                packed = brute_query_batch(
+                    X, d["feats"], d["feats_sq"], nb, d["n_occ"], K_pre=R,
+                    K_out=K_emit)
+            with span("cis.fetch"):
+                packed = packed.cpu().numpy()
+            if count_stats:
+                with self._mutlock:
+                    self.probe_stats["waves"] += 1
+                    self.probe_stats["brute_waves"] = (
+                        self.probe_stats.get("brute_waves", 0) + 1)
+            return unpack_query_out(packed, K_emit)
 
     def _bytes_per_query(self, Q, rung, R):
         """Device transients of one query of a wave at ``rung``, counted
@@ -762,42 +765,45 @@ class LOPQSearcherTorch(LOPQSearcherBase):
     def _escalate(self, run_tier, n, quota, nb, K_pad):
         """Ladder escalation with a quota-aware rung floor plus tier-hint
         hysteresis (the policy of the JAX searcher's ``_escalate``)."""
-        ladder = self._probe_ladder()
-        with self._mutlock:
-            floor = rung_floor(ladder, quota, nb, self.model.V,
-                               self._yield_ema)
-            start = min(max(self._tier_hint, floor), len(ladder) - 1)
-            self._wave_i += 1
-            if start > floor and (self._wave_i % self.REPROBE_EVERY == 0
-                                  or self._force_reprobe):
-                start = floor
-            self._force_reprobe = False
-        (rows, dists, ncells, frac_short, settle, yield_obs,
-         settled) = escalate_probe(
-            run_tier, ladder[start:], n, quota, nb, K_pad)
-        with self._mutlock:
-            # Jump the hint to the rung where >= 90% of this wave settled;
-            # an unsettled wave moves it only when most queries escalated.
-            new_hint = min(start + settle, len(ladder) - 1)
-            if not settled and frac_short < 0.5:
-                new_hint = self._tier_hint
-            if start == floor:
-                self._tier_hint = new_hint   # full ladder view: may decay
-            elif settle > 0:
-                # Escalated past its start: evidence for a wider hint.
-                self._tier_hint = max(self._tier_hint, new_hint)
-            if yield_obs is not None:
-                self._yield_ema = (yield_obs if self._yield_ema is None
-                                   else 0.7 * self._yield_ema
-                                   + 0.3 * yield_obs)
-            self.probe_stats["waves"] += 1
-            self.probe_stats["escalated_queries"] += int(
-                round(frac_short * n))
-            self.probe_stats.setdefault("wave_log", []).append(
-                [start, round(float(frac_short), 3), start + settle, floor,
-                 None if self._yield_ema is None
-                 else round(float(self._yield_ema), 2)])
-            del self.probe_stats["wave_log"][:-64]
+        with span("cis.ladder"):
+            ladder = self._probe_ladder()
+            with self._mutlock:
+                floor = rung_floor(ladder, quota, nb, self.model.V,
+                                   self._yield_ema)
+                start = min(max(self._tier_hint, floor), len(ladder) - 1)
+                self._wave_i += 1
+                if start > floor and (
+                        self._wave_i % self.REPROBE_EVERY == 0
+                        or self._force_reprobe):
+                    start = floor
+                self._force_reprobe = False
+            (rows, dists, ncells, frac_short, settle, yield_obs,
+             settled) = escalate_probe(
+                run_tier, ladder[start:], n, quota, nb, K_pad)
+            with self._mutlock:
+                # Jump the hint to the rung where >= 90% of this wave
+                # settled; an unsettled wave moves it only when most
+                # queries escalated.
+                new_hint = min(start + settle, len(ladder) - 1)
+                if not settled and frac_short < 0.5:
+                    new_hint = self._tier_hint
+                if start == floor:
+                    self._tier_hint = new_hint   # full ladder view: may decay
+                elif settle > 0:
+                    # Escalated past its start: evidence for a wider hint.
+                    self._tier_hint = max(self._tier_hint, new_hint)
+                if yield_obs is not None:
+                    self._yield_ema = (yield_obs if self._yield_ema is None
+                                       else 0.7 * self._yield_ema
+                                       + 0.3 * yield_obs)
+                self.probe_stats["waves"] += 1
+                self.probe_stats["escalated_queries"] += int(
+                    round(frac_short * n))
+                self.probe_stats.setdefault("wave_log", []).append(
+                    [start, round(float(frac_short), 3), start + settle,
+                     floor, None if self._yield_ema is None
+                     else round(float(self._yield_ema), 2)])
+                del self.probe_stats["wave_log"][:-64]
         return rows, dists, ncells
 
     def _wave_results(self, waves, K, K_emit, with_dists, ids_arr,
@@ -805,13 +811,14 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         """Per-query (results, visited) pairs of an answered wave."""
         rows_b, dists_b, ncells_b = waves
         K_out = min(K, K_emit)
-        return [
-            (self._rows_to_results(rows_b[i][:K_out], dists_b[i][:K_out],
-                                   with_dists, ids_arr, cells_arr, fine_arr,
-                                   with_codes=with_codes),
-             int(ncells_b[i]))
-            for i in range(len(rows_b))
-        ]
+        with span("cis.results"):
+            return [
+                (self._rows_to_results(rows_b[i][:K_out], dists_b[i][:K_out],
+                                       with_dists, ids_arr, cells_arr,
+                                       fine_arr, with_codes=with_codes),
+                 int(ncells_b[i]))
+                for i in range(len(rows_b))
+            ]
 
     @torch.inference_mode()
     def search_batch(self, X, quota=10, limit=None, with_dists=False,
@@ -824,48 +831,55 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         searcher_lopqhbase.py:862-912); reranked results carry exact L2
         distances. ``with_codes=False`` skips building LOPQCode tuples.
         """
-        X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
-        if isinstance(self.model, LOPQModelPCA):
-            X = self.model.apply_PCA(X)
-        d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
-        nq = X.shape[0]
-        if nb == 0:
-            return [([], 0)] * nq
-        V = self.model.V
-        if rerank_nb and d.get("feats") is None:
-            raise ValueError(
-                "rerank_nb requires a resident feature store "
-                "(add_codes(..., feats=...) for every add)")
-        K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
-                                                   rerank_nb)
+        with span("cis.search"):
+            X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
+            if isinstance(self.model, LOPQModelPCA):
+                X = self.model.apply_PCA(X)
+            d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
+            nq = X.shape[0]
+            if nb == 0:
+                return [([], 0)] * nq
+            V = self.model.V
+            if rerank_nb and d.get("feats") is None:
+                raise ValueError(
+                    "rerank_nb requires a resident feature store "
+                    "(add_codes(..., feats=...) for every add)")
+            K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
+                                                       rerank_nb)
 
-        if self._use_brute(d, nq, quota, nb, R):
-            rows_b, dists_b, _, ncells_b, _ = self._run_brute(
-                X, d, nb, R, K_emit)
-            waves = (rows_b, dists_b, ncells_b)
-        else:
-            def run_tier(idx, rung):
-                B, SB = rung_parts(rung)
-                Xi = X if len(idx) == nq else X[torch.from_numpy(
-                    np.asarray(idx)).to(self.device)]
-                tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
-                          d["cell_start"], d["order"])
-                cs = d["cells_sorted"] if d["cell_start"] is None else None
-                if R:
-                    out = lopq_query_rerank(
-                        Xi, d["feats"], *tables, quota, V=V, B=B, Q=Q,
-                        K=K_stage, R=R, K_out=K_emit, SB=SB, cells_sorted=cs)
-                else:
-                    out = lopq_query_orig(Xi, *tables, quota, V=V, B=B, Q=Q,
-                                          K=K_stage, SB=SB, cells_sorted=cs)
-                packed = pack_query_out(*out).cpu().numpy()  # one copy
-                return unpack_query_out(packed, K_emit)
+            if self._use_brute(d, nq, quota, nb, R):
+                rows_b, dists_b, _, ncells_b, _ = self._run_brute(
+                    X, d, nb, R, K_emit)
+                waves = (rows_b, dists_b, ncells_b)
+            else:
+                def run_tier(idx, rung):
+                    with span("cis.dispatch"):
+                        B, SB = rung_parts(rung)
+                        Xi = X if len(idx) == nq else X[torch.from_numpy(
+                            np.asarray(idx)).to(self.device)]
+                        tables = (d["Cs"], d["Rs"], d["mus"], d["subs"],
+                                  d["codes"], d["cell_start"], d["order"])
+                        cs = (d["cells_sorted"] if d["cell_start"] is None
+                              else None)
+                        if R:
+                            out = lopq_query_rerank(
+                                Xi, d["feats"], *tables, quota, V=V, B=B,
+                                Q=Q, K=K_stage, R=R, K_out=K_emit, SB=SB,
+                                cells_sorted=cs)
+                        else:
+                            out = lopq_query_orig(
+                                Xi, *tables, quota, V=V, B=B, Q=Q,
+                                K=K_stage, SB=SB, cells_sorted=cs)
+                        packed = pack_query_out(*out)
+                        with span("cis.fetch"):
+                            packed = packed.cpu().numpy()  # one copy
+                        return unpack_query_out(packed, K_emit)
 
-            waves = self._escalate(
-                self._chunk_waves(run_tier, self._wave_cap(Q, R)),
-                nq, quota, nb, K_emit)
-        return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
-                                  cells_arr, fine_arr, with_codes)
+                waves = self._escalate(
+                    self._chunk_waves(run_tier, self._wave_cap(Q, R)),
+                    nq, quota, nb, K_emit)
+            return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
+                                      cells_arr, fine_arr, with_codes)
 
     def _fused_tier(self, X, d, quota, Q, K_stage, R, K_emit):
         """``run_tier`` of the raw-feature path: one rung of
@@ -874,16 +888,20 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         V = self.model.V
 
         def run_tier(idx, rung):
-            B, SB = rung_parts(rung)
-            Xi = X if len(idx) == X.shape[0] else X[torch.from_numpy(
-                np.asarray(idx)).to(X.device)]
-            packed = fused_feat_query(
-                Xi, pca_P, pca_mu, d["Cs"], d["Rs"], d["mus"], d["subs"],
-                d["codes"], d["cell_start"], d["order"], quota, d["feats"],
-                V=V, B=B, Q=Q, K=K_stage, R=R, K_out=K_emit, renorm=renorm,
-                SB=SB, cells_sorted=(d["cells_sorted"] if d["cell_start"]
-                                     is None else None)).cpu().numpy()
-            return unpack_query_out(packed, K_emit)
+            with span("cis.dispatch"):
+                B, SB = rung_parts(rung)
+                Xi = X if len(idx) == X.shape[0] else X[torch.from_numpy(
+                    np.asarray(idx)).to(X.device)]
+                packed = fused_feat_query(
+                    Xi, pca_P, pca_mu, d["Cs"], d["Rs"], d["mus"], d["subs"],
+                    d["codes"], d["cell_start"], d["order"], quota,
+                    d["feats"], V=V, B=B, Q=Q, K=K_stage, R=R, K_out=K_emit,
+                    renorm=renorm, SB=SB,
+                    cells_sorted=(d["cells_sorted"] if d["cell_start"]
+                                  is None else None))
+                with span("cis.fetch"):
+                    packed = packed.cpu().numpy()
+                return unpack_query_out(packed, K_emit)
         return run_tier
 
     @torch.inference_mode()
@@ -900,32 +918,33 @@ class LOPQSearcherTorch(LOPQSearcherBase):
         padding). Only the first ``n_valid`` rows run, so pad rows never
         enter the escalation bookkeeping (a zero row always falls short of
         the quota and would drag every wave onto the wider rungs)."""
-        X = torch.as_tensor(feats_dev).to(self.device)
-        if X.ndim == 1:
-            X = X[None, :]
-        d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
-        nq = int(n_valid) if n_valid is not None else int(X.shape[0])
-        if nb == 0:
-            return [([], 0)] * nq
-        X = X[:nq]
-        if rerank_nb and d.get("feats") is None:
-            raise ValueError(
-                "rerank_nb requires a resident feature store "
-                "(add_codes(..., feats=...) for every add)")
-        K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
-                                                   rerank_nb)
-        if self._use_brute(d, nq, quota, nb, R):
-            rows_b, dists_b, _, ncells_b, _ = self._run_brute(
-                X, d, nb, R, K_emit, raw=True)
-            waves = (rows_b, dists_b, ncells_b)
-        else:
-            waves = self._escalate(
-                self._chunk_waves(self._fused_tier(X, d, quota, Q, K_stage,
-                                                   R, K_emit),
-                                  self._wave_cap(Q, R)),
-                nq, quota, nb, K_emit)
-        return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
-                                  cells_arr, fine_arr, with_codes=False)
+        with span("cis.search"):
+            X = torch.as_tensor(feats_dev).to(self.device)
+            if X.ndim == 1:
+                X = X[None, :]
+            d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
+            nq = int(n_valid) if n_valid is not None else int(X.shape[0])
+            if nb == 0:
+                return [([], 0)] * nq
+            X = X[:nq]
+            if rerank_nb and d.get("feats") is None:
+                raise ValueError(
+                    "rerank_nb requires a resident feature store "
+                    "(add_codes(..., feats=...) for every add)")
+            K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
+                                                       rerank_nb)
+            if self._use_brute(d, nq, quota, nb, R):
+                rows_b, dists_b, _, ncells_b, _ = self._run_brute(
+                    X, d, nb, R, K_emit, raw=True)
+                waves = (rows_b, dists_b, ncells_b)
+            else:
+                waves = self._escalate(
+                    self._chunk_waves(self._fused_tier(X, d, quota, Q,
+                                                       K_stage, R, K_emit),
+                                      self._wave_cap(Q, R)),
+                    nq, quota, nb, K_emit)
+            return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
+                                      cells_arr, fine_arr, with_codes=False)
 
     @torch.inference_mode()
     def prewarm_ladder(self, quota=10, limit=None, rerank_nb=None,

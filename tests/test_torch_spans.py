@@ -1,0 +1,197 @@
+"""The port's search-path spans (``common/profiling.py`` ``span`` and its
+``gc.callbacks`` hook) under the CPU profiler: which ``cis.`` spans a wave
+opens and how they nest, the collections' spans, nothing entered while no
+profiler records, and the same answers with the profiler on and off."""
+
+import gc
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from columbiaimagesearch_tpu_torch.common import profiling
+from columbiaimagesearch_tpu_torch.index.model import LOPQModel
+from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+
+from tests.oracle_lopq import random_params
+
+V, M, S, D = 16, 8, 32, 64
+N = 4000
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.RandomState(23)
+    params = random_params(rng, V=V, M=M, S=S, D=D)
+    coarse = rng.randint(0, V, (N, 2))
+    fine = rng.randint(0, S, (N, M))
+    feats = rng.randn(N, D).astype(np.float32)
+    queries = rng.randn(6, D).astype(np.float32)
+    return params, coarse, fine, feats, queries
+
+
+def _searcher(corpus, with_feats=False):
+    params, coarse, fine, feats, _ = corpus
+    s = LOPQSearcherTorch(LOPQModel.from_numpy(*params, device="cpu"))
+    s.add_codes((coarse, fine), feats=feats if with_feats else None)
+    return s
+
+
+@pytest.fixture
+def no_gc():
+    """Collections only where a test asks for them, so that no
+    ``cis.gc.*`` span falls into the nesting checks."""
+    was = gc.isenabled()
+    gc.disable()
+    yield
+    if was:
+        gc.enable()
+
+
+def _traced(tmp_path, fn):
+    """``fn()`` under the CPU profiler: (its value, the trace's ``cis.``
+    spans as (name, start, end), by start)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e["name"].startswith("cis.")),
+                   key=lambda s: (s[1], -s[2]))
+    return out, spans
+
+
+def _tree(spans):
+    """Each span's name with its parent's (the innermost span holding
+    it), as (name, parent name or None), in order of start."""
+    out, stack = [], []
+    for name, a, b in spans:
+        while stack and stack[-1][2] < b:
+            stack.pop()
+        out.append((name, stack[-1][0] if stack else None))
+        stack.append((name, a, b))
+    return out
+
+
+def _wave_tree(tree):
+    """The distinct (span, parent) pairs of a wave and the count of each
+    name."""
+    names = [n for n, _ in tree]
+    return set(tree), {n: names.count(n) for n in set(names)}
+
+
+@pytest.mark.parametrize("entry", ["search_batch", "search_device_feats"])
+def test_grid_wave_spans(corpus, entry, tmp_path, no_gc):
+    s = _searcher(corpus)
+    queries = corpus[-1]
+    call = getattr(s, entry)
+    _, spans = _traced(tmp_path, lambda: call(queries, quota=300, limit=20,
+                                              with_dists=True))
+    pairs, counts = _wave_tree(_tree(spans))
+    assert s.probe_stats["waves"] == 1
+    assert s.probe_stats.get("brute_waves", 0) == 0
+    assert counts["cis.search"] == 1 and counts["cis.ladder"] == 1
+    assert counts["cis.results"] == 1
+    assert counts["cis.dispatch"] >= 1
+    assert counts["cis.fetch"] == counts["cis.dispatch"]
+    assert pairs == {("cis.search", None), ("cis.ladder", "cis.search"),
+                     ("cis.dispatch", "cis.ladder"),
+                     ("cis.fetch", "cis.dispatch"),
+                     ("cis.results", "cis.search")}
+
+
+@pytest.mark.parametrize("entry", ["search_batch", "search_device_feats"])
+def test_brute_wave_spans(corpus, entry, tmp_path, no_gc):
+    s = _searcher(corpus, with_feats=True)
+    queries = corpus[-1]
+    call = getattr(s, entry)
+    _, spans = _traced(tmp_path, lambda: call(
+        queries, quota=300, limit=20, with_dists=True, rerank_nb=50))
+    pairs, counts = _wave_tree(_tree(spans))
+    assert s.probe_stats["brute_waves"] == 1
+    assert counts == {"cis.search": 1, "cis.dispatch": 1, "cis.fetch": 1,
+                      "cis.results": 1}
+    assert pairs == {("cis.search", None), ("cis.dispatch", "cis.search"),
+                     ("cis.fetch", "cis.dispatch"),
+                     ("cis.results", "cis.search")}
+
+
+def test_full_collection_is_one_span(tmp_path, no_gc):
+    _, spans = _traced(tmp_path, gc.collect)
+    assert [n for n, _, _ in spans] == ["cis.gc.2"]
+    _, spans = _traced(tmp_path, lambda: gc.collect(0))
+    assert [n for n, _, _ in spans] == ["cis.gc.0"]
+
+
+def test_the_hook_is_installed_once():
+    assert gc.callbacks.count(profiling._gc_span) == 1
+
+
+def test_the_flag_follows_the_profiler():
+    assert not profiling._recording()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert profiling._recording()
+    assert not profiling._recording()
+
+
+def test_a_session_starting_or_ending_in_a_collection(no_gc):
+    """The hook exits only what it entered: a collection that started
+    before the session opens no span, and one that started inside it
+    closes its span after the session ended."""
+    info = {"generation": 0}
+    profiling._gc_span("start", info)          # no session yet
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling._gc_span("stop", info)
+        assert profiling._gc_open == []
+        profiling._gc_span("start", info)
+        assert len(profiling._gc_open) == 1
+    profiling._gc_span("stop", info)           # the session has ended
+    assert profiling._gc_open == []
+
+
+def test_nothing_entered_without_a_profiler(corpus, monkeypatch):
+    entered = []
+
+    def refuse(*args, **kwargs):
+        entered.append(args)
+        raise AssertionError("a span was entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        refuse)
+    assert not profiling._recording()
+    queries = corpus[-1]
+    s = _searcher(corpus, with_feats=True)
+    s.search_batch(queries, quota=300, limit=20, with_dists=True)
+    s.search_batch(queries, quota=300, limit=20, with_dists=True,
+                   rerank_nb=50)
+    s.search_device_feats(queries, quota=300, limit=20)
+    gc.collect()    # a hook's exception would not propagate: read `entered`
+    assert entered == []
+    assert profiling.span("cis.search") is profiling.span("cis.results")
+
+
+def test_the_profiler_leaves_answers_alone(corpus, tmp_path):
+    queries = corpus[-1]
+
+    def waves(s):
+        return [s.search_batch(queries, quota=300, limit=20,
+                               with_dists=True),
+                s.search_batch(queries, quota=300, limit=20,
+                               with_dists=True, rerank_nb=50),
+                s.search_device_feats(queries, quota=300, limit=20,
+                                      rerank_nb=50)]
+
+    off = waves(_searcher(corpus, with_feats=True))
+    on, spans = _traced(tmp_path,
+                        lambda: waves(_searcher(corpus, with_feats=True)))
+    assert [n for n, _, _ in spans].count("cis.search") == 3
+    assert on == off
