@@ -61,6 +61,7 @@ from itertools import count
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.common.heap import Settled
 from columbiaimagesearch_tpu_torch.common.profiling import span
 from columbiaimagesearch_tpu_torch.device import device_bytes, free_bytes
 from columbiaimagesearch_tpu_torch.index.csr import (
@@ -274,8 +275,12 @@ class LOPQSearcher(LOPQSearcherBase):
         return self.index[tuple(int(c) for c in cell)]
 
 
-class LOPQSearcherTorch(LOPQSearcherBase):
-    """Device-resident CSR multi-index with batched probed queries."""
+class LOPQSearcherTorch(Settled, LOPQSearcherBase):
+    """Device-resident CSR multi-index with batched probed queries.
+
+    The process's first searcher freezes the import heap out of the
+    garbage collector's full collections before it is allocated
+    (``common/heap.py``); ``heap_stats`` keeps what that did."""
 
     #: appended chunks are sentinel-padded to this multiple
     CHUNK_QUANTUM = STORE_CHUNK

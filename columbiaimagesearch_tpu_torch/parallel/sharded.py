@@ -47,6 +47,7 @@ import threading
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.common.heap import Settled
 from columbiaimagesearch_tpu_torch.device import free_bytes
 from columbiaimagesearch_tpu_torch.index.csr import (
     append_and_build_csr,
@@ -160,7 +161,7 @@ def dp_encode(mesh, Cs, Rs, mus, subs, X, chunk: int = 2048):
     return coarse, fine
 
 
-class ShardedLOPQIndex:
+class ShardedLOPQIndex(Settled):
     """Row-sharded CSR multi-index over a mesh, with incremental append
     (sharded.py:84-932).
 
@@ -171,6 +172,9 @@ class ShardedLOPQIndex:
     query runs the probed query on every shard and merges the per-shard
     top-k on the first device in ``lax.top_k`` order (ascending, the
     lower merged index first on ties).
+
+    Like ``LOPQSearcherTorch``, the process's first one freezes the import
+    heap before it is allocated (``common/heap.py``, ``heap_stats``).
     """
 
     #: tier-hint hysteresis period (LOPQSearcherTorch.REPROBE_EVERY)
@@ -666,11 +670,13 @@ class ShardedLOPQIndex:
                                  rerank_nb=rerank_nb)[0]
 
 
-class ShardedLOPQSearcher:
+class ShardedLOPQSearcher(Settled):
     """``LOPQSearcher``-compatible facade over :class:`ShardedLOPQIndex`
     (sharded.py:934-1100): accumulates adds, deduplicates them (first
     insertion of an (id, cell) wins) and rebuilds the sharded index lazily;
     returns the single-device searchers' Result tuples with ``code=None``.
+    It settles the heap before it is allocated, as the index does
+    (``common/heap.py``, ``heap_stats``).
     """
 
     def __init__(self, model, mesh=None, probe_width=None,
