@@ -2,7 +2,10 @@
 ``make_server`` listens with a backlog of ``LISTEN_BACKLOG`` connections.
 The JAX server keeps socketserver's default of 5, so a burst of concurrent
 clients overflows it and the dropped connections come back only after the
-TCP connect retry (1 s, 3 s, 7 s, ...), or are reset.
+TCP connect retry (1 s, 3 s, 7 s, ...), or are reset. And one addition:
+while a profiler session is open, each request ``make_server`` handles is
+the span ``cis.http`` on its handler's thread, from reading the body to
+writing the reply (``common/profiling.py``).
 
 REST search API on the stdlib HTTP server.
 
@@ -25,6 +28,8 @@ import time
 import urllib.parse
 from datetime import datetime
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from columbiaimagesearch_tpu_torch.common.profiling import span
 
 REFRESH_DELAY = 3600
 #: listen backlog of ``make_server`` (see the module docstring)
@@ -382,9 +387,14 @@ def make_server(searcher, endpoint="cuimgsearch", port=5000, host="127.0.0.1",
             self._reply(code, payload)
 
         def do_GET(self):
-            self._route(self.path)
+            with span("cis.http"):
+                self._route(self.path)
 
         def do_POST(self):
+            with span("cis.http"):
+                self._post()
+
+        def _post(self):
             length = int(self.headers.get("Content-Length", 0))
             raw = self.rfile.read(length).decode() if length else ""
             form = {}

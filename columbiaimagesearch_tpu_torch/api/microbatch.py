@@ -14,20 +14,30 @@ melds requests arriving within a short window into one device batch.
 Latency math: a request pays at most ``window_ms`` extra wait; the batch
 amortizes the fixed per-launch host cost and runs the forward/query at
 wave efficiency.
+
+Port-side addition: while a profiler session is open, a request's wait
+from ``submit`` to the start of its batch is the span ``cis.queue`` on
+the submitting thread (``common/profiling.py``); the slot then carries a
+second event, set when its batch is taken. With no session open it costs
+one flag check a submit and one a slot.
 """
 
 import threading
 import time
 
+from columbiaimagesearch_tpu_torch.common.profiling import _recording, span
+
 
 class _Slot:
-    __slots__ = ("item", "event", "result", "error")
+    __slots__ = ("item", "event", "result", "error", "taken")
 
-    def __init__(self, item):
+    def __init__(self, item, taken=None):
         self.item = item
         self.event = threading.Event()
         self.result = None
         self.error = None
+        #: set when the slot's batch is taken (only while profiling)
+        self.taken = taken
 
 
 class MicroBatcher:
@@ -62,12 +72,17 @@ class MicroBatcher:
         result (or raise its error). Fails fast instead of parking forever
         if the worker thread has died (e.g. a BaseException escaped
         batch_fn)."""
-        slot = _Slot(item)
+        slot = _Slot(item, threading.Event() if _recording() else None)
         with self._wake:
             if self._closed or not self._worker.is_alive():
                 raise RuntimeError("MicroBatcher is closed")
             self._slots.append(slot)
             self._wake.notify()
+        if slot.taken is not None:
+            with span("cis.queue"):
+                while not slot.taken.wait(timeout=5.0):
+                    if not self._worker.is_alive():
+                        break
         while not slot.event.wait(timeout=5.0):
             if not self._worker.is_alive():
                 raise RuntimeError("MicroBatcher worker died")
@@ -99,6 +114,9 @@ class MicroBatcher:
                 self._wake.wait(timeout=remaining)
             batch = self._slots[:self.max_batch]
             del self._slots[:len(batch)]
+            for s in batch:
+                if s.taken is not None:
+                    s.taken.set()
             return batch
 
     def _run(self):

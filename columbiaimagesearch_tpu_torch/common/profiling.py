@@ -14,11 +14,15 @@ timelines.
 records the host and the card with ``torch.profiler`` and writes a chrome
 trace into ``logdir``.
 
-The search path opens named spans (:func:`span`, all named ``cis.*``)
-while a profiler records on the calling thread, and this module's
-``gc.callbacks`` hook spans every garbage collection (``cis.gc.<gen>``).
-They land in the same trace as the device's kernels and copies, on the
-same clock (category ``user_annotation``):
+The search path and the served path open named spans (:func:`span`, all
+named ``cis.*``) while a profiler session is open in the process, on
+whichever thread they run, and this module's ``gc.callbacks`` hook spans
+every garbage collection (``cis.gc.<gen>``). They land in the same trace
+as the device's kernels and copies, on the same clock (category
+``user_annotation``). A session records the spans of the thread that
+opened it; one opened with ``profile_all_threads`` (``torch._C._profiler.
+_ExperimentalConfig``) records those of every thread, as the served path
+needs:
 
 - ``cis.search``: one wave of ``search_batch`` or ``search_device_feats``;
 - ``cis.ladder``: the probe ladder (``_escalate``);
@@ -27,14 +31,24 @@ same clock (category ``user_annotation``):
   output (the host waiting for the device);
 - ``cis.results``: the wave's result rows;
 - ``cis.gc.0``, ``cis.gc.1``, ``cis.gc.2``: a collection of that
-  generation.
+  generation;
+- on an HTTP handler's thread: ``cis.http``, one request from reading its
+  body to writing the JSON reply (``api/app.py``); inside it
+  ``cis.decode``, the request's image read (the featurizer's
+  ``prepare_wave``: the JPEG coefficient read), and ``cis.queue``, the
+  request's wait in the coalescer from ``submit`` to the start of its
+  batch (``api/microbatch.py``);
+- on the coalescer's thread, one served wave: ``cis.featurize`` (pixel
+  reconstruction, preprocessing and the forward to fc7), then
+  ``cis.search`` as above, then one ``cis.assemble`` a request (its reply
+  rows, ``format_output``).
 
 To read a ``device_trace``: the device is idle wherever no kernel, copy
 or memset runs; over each idle gap, the innermost ``cis.`` span open on
 the host's thread says what the host was doing (``cis.dispatch`` alone:
 enqueuing or unpacking; ``cis.gc.*``: collecting). With no profiler
-running a span costs one check of the profiler's flag and records
-nothing.
+session open a span costs one read of torch's process-wide profiler flag
+and records nothing.
 """
 
 import contextlib
@@ -46,18 +60,24 @@ from collections import defaultdict
 
 import torch
 
-#: whether a profiler records on this thread (one C call)
-_recording = torch._C._autograd._profiler_enabled
+#: torch's module whose ``_is_profiler_enabled`` is set while a profiler
+#: session is open in the process, whichever thread opened it
+_flags = torch.autograd.profiler
 _OFF = contextlib.nullcontext()
 _GC_SPANS = ("cis.gc.0", "cis.gc.1", "cis.gc.2")
 
 
+def _recording():
+    """Whether a profiler session is open in the process."""
+    return _flags._is_profiler_enabled
+
+
 def span(name):
-    """A ``torch.profiler.record_function(name)`` while a profiler records
-    on this thread, else a shared context that does nothing. ``name``
-    starts with ``cis.`` and carries no value (a span's arguments do not
-    reach the chrome trace)."""
-    if _recording():
+    """A ``torch.profiler.record_function(name)`` while a profiler session
+    is open, else a shared context that does nothing. ``name`` starts with
+    ``cis.`` and carries no value (a span's arguments do not reach the
+    chrome trace). A session records it if it records this thread."""
+    if _flags._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _OFF
 
@@ -68,7 +88,7 @@ _gc_open = []
 
 def _gc_span(phase, info):
     """``gc.callbacks`` hook: a collection is the span ``cis.gc.<gen>``
-    while a profiler records. ``stop`` exits only a record that its
+    while a profiler session is open. ``stop`` exits only a record that its
     ``start`` entered (a profiler may start or stop during a
     collection)."""
     if phase == "start":

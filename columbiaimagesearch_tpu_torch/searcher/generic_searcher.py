@@ -25,11 +25,16 @@ Differences from the JAX module:
 - Device features are detected as ``torch.Tensor`` (on the CPU too).
 - ``device`` (default: the first card; raises without one) is where the
   featurizer the searcher builds runs; ``device="cpu"`` asks for the CPU.
+- The served path opens the spans ``cis.decode`` (a request's
+  ``prepare_wave``, on its handler's thread) and ``cis.featurize`` (the
+  wave's reconstruction and forward, on the coalescer's thread); see
+  ``common/profiling.py``.
 """
 
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.common.profiling import span
 from columbiaimagesearch_tpu_torch.device import resolve_device
 from columbiaimagesearch_tpu_torch.searcher.output_mapping import DictOutput
 
@@ -213,7 +218,8 @@ class GenericSearcher:
         if (bufs and hasattr(self.featurizer, "prepare_wave")
                 and hasattr(self.featurizer, "featurize_preps")
                 and self._use_device_feats(options_dict)):
-            prep = self.featurizer.prepare_wave(bufs)
+            with span("cis.decode"):
+                prep = self.featurizer.prepare_wave(bufs)
             if all(int(s) == 0 for s in prep[1]["status"]):
                 request["prep"] = prep
         return request
@@ -344,16 +350,17 @@ class GenericSearcher:
                         and hasattr(self.featurizer, "featurize_wave")):
                     # Wave route: keep the whole forward output on the
                     # device and record per-request row spans.
-                    if (hasattr(self.featurizer, "featurize_preps")
-                            and all("prep" in requests[ri]
-                                    for ri in rids)):
-                        # The handler threads decoded (_prepare_request):
-                        # the wave is device-only.
-                        w, n_w, status = self.featurizer.featurize_preps(
-                            [requests[ri]["prep"] for ri in rids])
-                    else:
-                        w, n_w, status = self.featurizer.featurize_wave(
-                            flat)
+                    with span("cis.featurize"):
+                        if (hasattr(self.featurizer, "featurize_preps")
+                                and all("prep" in requests[ri]
+                                        for ri in rids)):
+                            # The handler threads decoded
+                            # (_prepare_request): the wave is device-only.
+                            w, n_w, status = self.featurizer.featurize_preps(
+                                [requests[ri]["prep"] for ri in rids])
+                        else:
+                            w, n_w, status = self.featurizer.featurize_wave(
+                                flat)
                     if all(int(s) == 0 for s in status):
                         at = 0
                         for ri in rids:

@@ -37,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.common.profiling import span
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel, LOPQModelPCA
 from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
 from columbiaimagesearch_tpu_torch.searcher.generic_searcher import GenericSearcher
@@ -484,24 +485,26 @@ class SearcherLOPQ(GenericSearcher):
                 float(options_dict.get("near_dup_th", self.near_dup_th)))
 
     def _assemble_simple(self, dets, feats, answers, options_dict):
-        """Non-detector answers -> formatted output (one request)."""
-        all_sim_images, all_sim_dets, all_sim_score = [], [], []
-        w = 0
-        for _ in range(len(feats)):
-            if self.searcher is None:
-                all_sim_images.append([[]])
+        """Non-detector answers -> formatted output (one request; the span
+        ``cis.assemble``)."""
+        with span("cis.assemble"):
+            all_sim_images, all_sim_dets, all_sim_score = [], [], []
+            w = 0
+            for _ in range(len(feats)):
+                if self.searcher is None:
+                    all_sim_images.append([[]])
+                    all_sim_dets.append([])
+                    all_sim_score.append([[]])
+                    continue
+                ids, dd, _ = answers[w]
+                w += 1
+                sha1s = [str(r) for r in ids]
+                all_sim_images.append([self._info_rows(sha1s)])
                 all_sim_dets.append([])
-                all_sim_score.append([[]])
-                continue
-            ids, dd, _ = answers[w]
-            w += 1
-            sha1s = [str(r) for r in ids]
-            all_sim_images.append([self._info_rows(sha1s)])
-            all_sim_dets.append([])
-            all_sim_score.append([dd])
-        return self.do.format_output(dets, all_sim_images, all_sim_dets,
-                                     all_sim_score, options_dict,
-                                     self.input_type)
+                all_sim_score.append([dd])
+            return self.do.format_output(dets, all_sim_images, all_sim_dets,
+                                         all_sim_score, options_dict,
+                                         self.input_type)
 
     def search_from_feats_multi(self, requests, wave=None, spans=None):
         """Coalesced serving: one `_search_many` device wave for every
@@ -590,28 +593,29 @@ class SearcherLOPQ(GenericSearcher):
 
     def _assemble_faces(self, dets, feats, answers, options_dict):
         """Face-path answers (dict keyed (image_idx, face_idx)) ->
-        formatted output (one request)."""
+        formatted output (one request; the span ``cis.assemble``)."""
         del feats
-        all_sim_images, all_sim_dets, all_sim_score = [], [], []
-        for i in range(len(dets)):
-            sim_images, sim_dets, sim_score = [], [], []
-            for j in range(len(dets[i][1])):
-                if (i, j) not in answers:
-                    sim_images.append([])
-                    sim_dets.append([])
-                    sim_score.append([])
-                    continue
-                ids, dd, _ = answers[(i, j)]
-                img_sha1s = [str(r).split("_")[0] for r in ids]
-                sim_images.append(self._info_rows(img_sha1s))
-                sim_dets.append([str(r) for r in ids])
-                sim_score.append(dd)
-            all_sim_images.append(sim_images)
-            all_sim_dets.append(sim_dets)
-            all_sim_score.append(sim_score)
-        return self.do.format_output(dets, all_sim_images, all_sim_dets,
-                                     all_sim_score, options_dict,
-                                     self.input_type)
+        with span("cis.assemble"):
+            all_sim_images, all_sim_dets, all_sim_score = [], [], []
+            for i in range(len(dets)):
+                sim_images, sim_dets, sim_score = [], [], []
+                for j in range(len(dets[i][1])):
+                    if (i, j) not in answers:
+                        sim_images.append([])
+                        sim_dets.append([])
+                        sim_score.append([])
+                        continue
+                    ids, dd, _ = answers[(i, j)]
+                    img_sha1s = [str(r).split("_")[0] for r in ids]
+                    sim_images.append(self._info_rows(img_sha1s))
+                    sim_dets.append([str(r) for r in ids])
+                    sim_score.append(dd)
+                all_sim_images.append(sim_images)
+                all_sim_dets.append(sim_dets)
+                all_sim_score.append(sim_score)
+            return self.do.format_output(dets, all_sim_images, all_sim_dets,
+                                         all_sim_score, options_dict,
+                                         self.input_type)
 
     def search_from_feats(self, dets, feats, options_dict=None):
         """(reference: searcher_lopqhbase.py:783-1067)"""

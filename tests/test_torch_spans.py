@@ -195,3 +195,174 @@ def test_the_profiler_leaves_answers_alone(corpus, tmp_path):
                         lambda: waves(_searcher(corpus, with_feats=True)))
     assert [n for n, _, _ in spans].count("cis.search") == 3
     assert on == off
+
+
+# ------------------------------------------------------------ served path
+
+
+@pytest.fixture(scope="module")
+def served():
+    """A coalescing facade on the CPU (DeepSentibank at full width on the
+    coefficient route, a ``lopq_pca`` model 4096 -> 64 with the rerank
+    store) behind ``make_server``, and three small JPEGs."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from columbiaimagesearch_tpu_torch.api.app import make_server
+    from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
+    from columbiaimagesearch_tpu_torch.models.sentibank import (
+        SentibankFeaturizer,
+        init_params,
+    )
+    from columbiaimagesearch_tpu_torch.searcher.searcher_lopq import (
+        SearcherLOPQ,
+    )
+    from columbiaimagesearch_tpu_torch.store import KVIndexer, MemoryStorer
+
+    rng = np.random.RandomState(29)
+    params = random_params(rng, V=V, M=M, S=S, D=D)
+    P = np.linalg.qr(rng.randn(4096, D))[0].astype(np.float32)
+    mu = np.zeros(4096, np.float32)
+    model = LOPQModelPCA.from_numpy(*params, P, mu, device="cpu")
+    facade = SearcherLOPQ(
+        model_type="lopq_pca", V=V, M=M, subquantizer_clusters=S,
+        pca_dims=D, model=model, detector_type="full",
+        featurizer=SentibankFeaturizer(params=init_params(0), device="cpu",
+                                       device_decode=True),
+        indexer=KVIndexer(path=":memory:"), storer=MemoryStorer(),
+        reranking=True, rerank_nb=50, sim_limit=5, skip_get_sim_info=True,
+        coalesce_window_ms=50.0, coalesce_max_batch=8, device="cpu")
+    facade.searcher.add_codes(
+        (rng.randint(0, V, (N, 2)), rng.randint(0, S, (N, M))),
+        feats=rng.randn(N, D).astype(np.float32))
+    jpegs = []
+    for k in range(3):
+        b = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (64, 96, 3)).astype(np.uint8)) \
+            .save(b, format="JPEG", quality=85, subsampling=2)
+        jpegs.append(b.getvalue())
+    server = make_server(facade, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield facade, server.server_address[1], jpegs
+    server.shutdown()
+    server.server_close()
+    facade.request_batcher.close()
+
+
+def _post_all(port, jpegs):
+    """The JPEGs posted at once to ``byB64``, one a thread; the replies."""
+    import base64
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    out = [None] * len(jpegs)
+
+    def post(i):
+        body = urllib.parse.urlencode(
+            {"data": base64.b64encode(jpegs[i]).decode()}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/cuimgsearch/byB64", data=body,
+            method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out[i] = json.loads(r.read())
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(jpegs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    return out
+
+
+def _by_thread(events):
+    """{thread: [(name, start, end)] by start} of the ``cis.`` spans."""
+    out = {}
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e["name"].startswith("cis.")):
+            out.setdefault(e["tid"], []).append(
+                (e["name"], e["ts"], e["ts"] + e["dur"]))
+    return {t: sorted(s, key=lambda x: (x[1], -x[2]))
+            for t, s in out.items()}
+
+
+def test_served_spans_on_every_thread(served, tmp_path, no_gc):
+    """Under a profiler of every thread, each request is ``cis.http`` on its
+    handler's thread holding ``cis.decode`` then ``cis.queue``; each
+    coalesced wave is ``cis.featurize``, ``cis.search`` and one
+    ``cis.assemble`` a request on the coalescer's thread, outside any
+    other span there."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    facade, port, jpegs = served
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
+        replies = _post_all(port, jpegs)
+    for r in replies:
+        assert len(r["AllSimilarImages"][0]["SimilarImages"]
+                   ["ImageSha1s"]) == 5
+    path = tmp_path / "served.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        threads = _by_thread(json.load(f)["traceEvents"])
+    handlers = [s for s in threads.values() if s[0][0] == "cis.http"]
+    assert len(handlers) == len(jpegs)
+    for spans in handlers:
+        assert [n for n, _, _ in spans] == ["cis.http", "cis.decode",
+                                            "cis.queue"]
+        assert _tree(spans) == [("cis.http", None),
+                                ("cis.decode", "cis.http"),
+                                ("cis.queue", "cis.http")]
+        assert spans[1][2] <= spans[2][1]          # decode, then the wait
+    workers = [s for s in threads.values()
+               if any(n == "cis.featurize" for n, _, _ in s)]
+    assert len(workers) == 1
+    tree = _tree(workers[0])
+    names = [n for n, _ in tree]
+    waves = names.count("cis.featurize")
+    assert waves == names.count("cis.search") >= 1
+    assert names.count("cis.assemble") == len(jpegs)
+    tops = [n for n, parent in tree if parent is None]
+    assert {"cis.featurize", "cis.search", "cis.assemble"} == set(tops)
+    assert tops.index("cis.featurize") < tops.index("cis.search") \
+        < tops.index("cis.assemble")
+    assert sum(facade.request_batcher.batch_sizes[-waves:]) == len(jpegs)
+
+
+def test_the_flag_holds_on_every_thread():
+    """The span's flag is process-wide: another thread reads it set while
+    this one's profiler runs."""
+    import threading
+
+    seen = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        t = threading.Thread(target=lambda: seen.append(
+            profiling._recording()))
+        t.start()
+        t.join()
+    assert seen == [True] and not profiling._recording()
+
+
+def test_served_path_enters_nothing_without_a_profiler(served, monkeypatch):
+    facade, port, jpegs = served
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span was entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not profiling._recording()
+    replies = _post_all(port, jpegs)
+    assert all(r is not None and "AllSimilarImages" in r for r in replies)
+    shared = profiling.span("cis.search")
+    for name in ("cis.http", "cis.decode", "cis.queue", "cis.featurize",
+                 "cis.assemble"):
+        assert profiling.span(name) is shared
