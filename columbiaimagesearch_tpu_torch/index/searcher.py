@@ -56,7 +56,7 @@ searcher.py:176-258) and the dict-backed ``LOPQSearcher``
 
 import threading
 from collections import defaultdict, namedtuple
-from itertools import count
+from itertools import count, repeat
 
 import numpy as np
 import torch
@@ -818,11 +818,11 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
         K_out = min(K, K_emit)
         with span("cis.results"):
             return [
-                (self._rows_to_results(rows_b[i][:K_out], dists_b[i][:K_out],
-                                       with_dists, ids_arr, cells_arr,
-                                       fine_arr, with_codes=with_codes),
-                 int(ncells_b[i]))
-                for i in range(len(rows_b))
+                (self._rows_to_results(rows, dists, with_dists, ids_arr,
+                                       cells_arr, fine_arr,
+                                       with_codes=with_codes), visited)
+                for rows, dists, visited in zip(
+                    rows_b[:, :K_out], dists_b[:, :K_out], ncells_b.tolist())
             ]
 
     @torch.inference_mode()
@@ -1004,22 +1004,24 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
 
     def _rows_to_results(self, rows, dists, with_dists, ids_arr, cells_arr,
                          fine_arr, with_codes=True):
-        V_, S = self.model.V, self.model.subquantizer_clusters
-        cdt, fdt = code_dtype_for(V_), code_dtype_for(S)
         ids = ids_arr
         if not with_codes:
-            rows = np.asarray(rows)
-            dists = np.asarray(dists)
             mask = (rows >= 0) & np.isfinite(dists)
             sel_ids = ids[rows[mask]]
             # tolist() unboxes an int64 id array in C (per-id _pyid calls
             # were most of a 100-query wave's host time).
             sel_ids = (sel_ids.tolist() if sel_ids.dtype != object
                        else [_pyid(i) for i in sel_ids])
+            # tuple.__new__ mapped over the rows builds each namedtuple in
+            # C; calling ResultDist(...) runs its Python __new__ once a row.
             if with_dists:
-                return [ResultDist(i, None, d)
-                        for i, d in zip(sel_ids, dists[mask].tolist())]
-            return [Result(i, None) for i in sel_ids]
+                return list(map(tuple.__new__, repeat(ResultDist),
+                                zip(sel_ids, repeat(None),
+                                    dists[mask].tolist())))
+            return list(map(tuple.__new__, repeat(Result),
+                            zip(sel_ids, repeat(None))))
+        V_, S = self.model.V, self.model.subquantizer_clusters
+        cdt, fdt = code_dtype_for(V_), code_dtype_for(S)
         out = []
         for r, dist in zip(rows, dists):
             if r < 0 or not np.isfinite(dist):
