@@ -36,12 +36,15 @@ Differences from the JAX searcher:
 
 The serving fast path (searcher.py:1176-1350) is ported:
 :meth:`LOPQSearcherTorch.search_device_feats` takes raw features straight
-from the featurizer (normalize and PCA on the device,
-``query.fused_feat_query``), and :meth:`LOPQSearcherTorch.prewarm_ladder`
-runs every rung once before traffic. Search entry points run under
-``torch.inference_mode`` (grad mode is per thread, and serving searches
-run in the coalescer's and the HTTP handlers' threads); the device buffers
-are built outside it, so later in-place appends stay legal.
+from the featurizer (normalize and PCA on the device once a wave,
+``query.normalize_project``), and :meth:`LOPQSearcherTorch.prewarm_ladder`
+runs every rung once before traffic. Below the entry points the wave
+(plan choice, brute pass or probe ladder, wave cap, result rows, prewarm)
+is ``_WaveDriver``'s, which the sharded index shares. Search entry points
+run under ``torch.inference_mode`` (grad mode is per thread, and serving
+searches run in the coalescer's and the HTTP handlers' threads); the
+device buffers are built outside it, so later in-place appends stay
+legal.
 
 ``codestore_path`` persists the codes in the native store
 (searcher.py:405-416, 486-492). At V >= ``WIDE_V_THRESHOLD`` (8192) the
@@ -80,10 +83,9 @@ from columbiaimagesearch_tpu_torch.index.probe import (
 )
 from columbiaimagesearch_tpu_torch.index.query import (
     brute_query_batch,
-    fused_feat_brute,
-    fused_feat_query,
     lopq_query_orig,
     lopq_query_rerank,
+    normalize_project,
     pack_query_out,
     unpack_query_out,
     uses_lut,
@@ -107,6 +109,18 @@ ResultDist = namedtuple("Result", ["id", "code", "dist"])
 def _pyid(v):
     """Unbox numpy scalars so Result.id is always a plain Python value."""
     return v.item() if isinstance(v, np.generic) else v
+
+
+def _valid_rows(rows, dists, ids):
+    """One query's valid answer rows (row >= 0, finite distance): (the
+    rows, their ids and their distances as Python lists). ``tolist``
+    unboxes an int64 id array in C (per-id ``_pyid`` calls were most of a
+    100-query wave's host time)."""
+    keep = (rows >= 0) & np.isfinite(dists)
+    rows = rows[keep]
+    sel = ids[rows]
+    sel = sel.tolist() if sel.dtype != object else [_pyid(i) for i in sel]
+    return rows, sel, dists[keep].tolist()
 
 
 def _codes_to_arrays(codes, ids, V, S):
@@ -275,7 +289,319 @@ class LOPQSearcher(LOPQSearcherBase):
         return self.index[tuple(int(c) for c in cell)]
 
 
-class LOPQSearcherTorch(Settled, LOPQSearcherBase):
+class _WaveDriver(Settled):
+    """The wave below a device searcher's entry points, shared by
+    :class:`LOPQSearcherTorch` and the sharded index
+    (``parallel/sharded.py``): the plan choice, the brute pass or the probe
+    ladder with its tier hint and yield EMA, the per-launch wave cap with
+    its out-of-memory backoff, the result rows and the prewarm.
+
+    A subclass supplies its snapshot (``_snapshot``: (snapshot dict with
+    ``feats``, ids, cells, fine, rows)), the launches of one rung and of
+    the brute pass (``_launch_rung``, ``_launch_brute``: a packed device
+    tensor, see ``query.pack_query_out``), the projection of raw queries
+    (``_project``), one query's result rows (``_rows_to_results``), and
+    where it differs from one card the rows one brute scan reads
+    (``_scan_rows``), the candidate budget (``_budget``) and the rows a
+    query scores exactly (``_exact_rows``). It calls ``_init_waves`` with
+    its devices."""
+
+    #: every REPROBE_EVERY-th wave restarts the ladder from its floor so
+    #: the tier hint can shift back down
+    REPROBE_EVERY = 32
+
+    def _init_waves(self, devices):
+        #: distinct devices in order; the wave cap reads the tightest
+        self._wave_devices = list(dict.fromkeys(devices))
+        self._tier_hint = 0
+        self._wave_i = 0
+        self._brute_i = 0
+        self._force_reprobe = False
+        self._yield_ema = None
+        #: wave-cap divisor, doubled each time a launch runs out of memory
+        self._wave_oom_shrink = 1
+        self.probe_stats = {"waves": 0, "escalated_queries": 0}
+
+    def _probe_ladder(self):
+        return probe_ladder(self.model.V, self.probe_width)
+
+    def _scan_rows(self, nb):
+        """Rows one brute scan reads."""
+        return nb
+
+    def _budget(self, d, quota, nb):
+        """Q, one query's candidate budget."""
+        return _query_geometry(quota, None, nb, 0)[1]
+
+    def _exact_rows(self, K_stage, R):
+        """Rows of a query the rerank scores exactly (0 = no rerank)."""
+        return R
+
+    def _use_brute(self, d, nq, quota, nb, R):
+        """Plan choice for a rerank wave: one exact brute pass over the
+        resident feature store vs the grid probe ladder (see
+        probe.prefer_brute), both sides costed on the rows one scan reads.
+        Only in rerank mode, and never with a pinned probe_width."""
+        feats = d.get("feats")
+        if not R or feats is None or self.probe_width:
+            return False
+        ladder = self._probe_ladder()
+        V = self.model.V
+        cost = (self._scan_rows(nb), V, self._budget(d, quota, nb))
+        store = dict(D=feats.shape[1], itemsize=feats.element_size(),
+                     K_pre=R)
+        with self._mutlock:
+            floor = rung_floor(ladder, quota, nb, V, self._yield_ema)
+            # Cost the rung the wave will actually start at.
+            start = max(floor, self._tier_hint)
+            if start > floor and prefer_brute(ladder[start:], nq, *cost,
+                                              **store):
+                # Hint-driven brute waves bypass the ladder; every
+                # REPROBE_EVERY-th one runs the ladder from the floor so
+                # the hint can decay.
+                self._brute_i += 1
+                if self._brute_i % self.REPROBE_EVERY == 0:
+                    self._force_reprobe = True
+                    return False
+                return True
+        return prefer_brute(ladder[start:], nq, *cost, **store)
+
+    def _run_brute(self, X, d, nb, R, K_emit, count_stats=True):
+        """One exact brute wave over index-space queries ``X``: the
+        launch, one device-to-host copy, the stats and the unpack.
+        ``count_stats=False`` (prewarm) keeps warm-up launches out of the
+        probe stats."""
+        with span("cis.dispatch"):
+            packed = self._launch_brute(X, d, nb, R, K_emit)
+            with span("cis.fetch"):
+                packed = packed.cpu().numpy()
+            if count_stats:
+                with self._mutlock:
+                    self.probe_stats["waves"] += 1
+                    self.probe_stats["brute_waves"] = (
+                        self.probe_stats.get("brute_waves", 0) + 1)
+            return unpack_query_out(packed, K_emit)
+
+    def _bytes_per_query(self, Q, rung, R):
+        """Device transients of one query of a wave at ``rung``, counted
+        from the tensors :func:`lopq_query` (and the rerank) allocate:
+
+        - coarse distances and, off the LUT route, the rotated residuals
+          of every cluster: ~3 x [V, Dh] float32;
+        - the probed region: grid, sort keys and permutation, cell ids,
+          counts, starts and prefix sums: ~14 int64-sized values per cell
+          (the sort-free wide square path holds fewer at its peak: the
+          grid, counts, the global prefix table, the sort's values,
+          permutation and workspace, and the sorted counts' cumsum,
+          ~60 B a cell);
+        - per candidate slot: slot metadata (~12 int64) plus the candidate
+          codes and the gather indices and values (~20 B per code);
+        - the LUT route's tables [2, B, F, S] float32, or the direct
+          route's gathered rotated residuals and differences (~3 x Dh
+          float32 per slot);
+        - the rerank's gathered features in the store's dtype, their
+          float32 upcast (a bfloat16 store only) and the differences.
+
+        ``chip_smoke.py`` holds this against the measured peak allocation
+        of a 100-query wave and fails if the model is below it. At 10.5M
+        rows, V=4096, M=8, D=256, quota 10k on an NVIDIA H100 80GB HBM3
+        at 700 W the model is 2.40x the measured peak at rung 64, 1.59x
+        at (128, 8) and 1.69x at (128, 8) with rerank_nb=1000. On the wide
+        square rung B=256 (G = 65,536) it is 2.17x at that size (V=4096,
+        wave of 100) and 2.97x on the face index (8,388,608 rows, V=256,
+        M=8, D=128, wave of 32), on the same card.
+        """
+        m = self.model
+        V, M, Dh = m.V, m.M, int(m.Cs.shape[2])
+        F, S = m.num_fine_splits, m.subquantizer_clusters
+        B, SB = rung_parts(rung)
+        B = min(B, V)
+        G = rung_cells(rung, V)
+        per_q = 3 * V * Dh * 4 + G * 112 + Q * (96 + 20 * M)
+        if uses_lut(B, SB, V, Q):
+            per_q += 2 * B * F * S * 4
+        else:
+            per_q += Q * Dh * 12
+        if R and self._buf_feats is not None:
+            esz = self._buf_feats.element_size()
+            per_q += R * int(self._buf_feats.shape[1]) * (
+                8 + (esz if esz < 4 else 0))
+        return per_q
+
+    def _wave_cap(self, Q, R):
+        """Per-launch query cap as a function of the rung: half of the
+        free memory of the tightest device over the per-query transients
+        (the half is headroom for the caching allocator's fragmentation,
+        which the measured peaks do not include)."""
+        free = min(free_bytes(dev) for dev in self._wave_devices)
+        return lambda rung: max(
+            1, int(free / 2 / self._bytes_per_query(Q, rung, R)))
+
+    def _chunk_waves(self, run_tier, nq_cap):
+        """Wrap ``run_tier`` so waves split into <= nq_cap(rung) query
+        launches. A launch that runs out of device memory halves this
+        searcher's cap and retries, down to single-query launches."""
+
+        def wrapped(idx, rung):
+            with self._mutlock:
+                shrink = self._wave_oom_shrink
+            cap = max(1, nq_cap(rung) // shrink)
+            if len(idx) <= cap:
+                try:
+                    return run_tier(idx, rung)
+                except torch.cuda.OutOfMemoryError:
+                    if cap <= 1:
+                        raise
+                    with self._mutlock:
+                        self._wave_oom_shrink = max(self._wave_oom_shrink,
+                                                    2 * shrink)
+                    return wrapped(idx, rung)
+            parts = [wrapped(idx[i:i + cap], rung)
+                     for i in range(0, len(idx), cap)]
+            return tuple(np.concatenate([p[j] for p in parts])
+                         for j in range(5))
+        return wrapped
+
+    def _tier(self, X, d, quota, Q, K_stage, R, K_emit):
+        """``run_tier`` of a wave of index-space queries ``X``: one rung
+        over the rows ``idx`` (the launch, one device-to-host copy, the
+        unpack), in launches of at most the wave cap."""
+        V = self.model.V
+
+        def run_tier(idx, rung):
+            with span("cis.dispatch"):
+                B, SB = rung_parts(rung)
+                Xi = X if len(idx) == X.shape[0] else X[torch.from_numpy(
+                    np.asarray(idx)).to(X.device)]
+                packed = self._launch_rung(Xi, d, quota, V, B, Q, K_stage, R,
+                                           K_emit, SB)
+                with span("cis.fetch"):
+                    packed = packed.cpu().numpy()  # one copy
+                return unpack_query_out(packed, K_emit)
+        return self._chunk_waves(
+            run_tier, self._wave_cap(Q, self._exact_rows(K_stage, R)))
+
+    def _escalate(self, run_tier, n, quota, nb, K_pad):
+        """Ladder escalation with a quota-aware rung floor plus tier-hint
+        hysteresis (the policy of the JAX searcher's ``_escalate``)."""
+        with span("cis.ladder"):
+            ladder = self._probe_ladder()
+            with self._mutlock:
+                floor = rung_floor(ladder, quota, nb, self.model.V,
+                                   self._yield_ema)
+                start = min(max(self._tier_hint, floor), len(ladder) - 1)
+                self._wave_i += 1
+                if start > floor and (
+                        self._wave_i % self.REPROBE_EVERY == 0
+                        or self._force_reprobe):
+                    start = floor
+                self._force_reprobe = False
+            (rows, dists, ncells, frac_short, settle, yield_obs,
+             settled) = escalate_probe(
+                run_tier, ladder[start:], n, quota, nb, K_pad)
+            with self._mutlock:
+                # Jump the hint to the rung where >= 90% of this wave
+                # settled; an unsettled wave moves it only when most
+                # queries escalated.
+                new_hint = min(start + settle, len(ladder) - 1)
+                if not settled and frac_short < 0.5:
+                    new_hint = self._tier_hint
+                if start == floor:
+                    self._tier_hint = new_hint   # full ladder view: may decay
+                elif settle > 0:
+                    # Escalated past its start: evidence for a wider hint.
+                    self._tier_hint = max(self._tier_hint, new_hint)
+                if yield_obs is not None:
+                    self._yield_ema = (yield_obs if self._yield_ema is None
+                                       else 0.7 * self._yield_ema
+                                       + 0.3 * yield_obs)
+                self.probe_stats["waves"] += 1
+                self.probe_stats["escalated_queries"] += int(
+                    round(frac_short * n))
+                self.probe_stats.setdefault("wave_log", []).append(
+                    [start, round(float(frac_short), 3), start + settle,
+                     floor, None if self._yield_ema is None
+                     else round(float(self._yield_ema), 2)])
+                del self.probe_stats["wave_log"][:-64]
+        return rows, dists, ncells
+
+    def _wave_results(self, waves, K, K_emit, with_dists, ids_arr,
+                      cells_arr, fine_arr, with_codes):
+        """Per-query (results, visited) pairs of an answered wave."""
+        rows_b, dists_b, ncells_b = waves
+        K_out = min(K, K_emit)
+        with span("cis.results"):
+            return [
+                (self._rows_to_results(rows, dists, with_dists, ids_arr,
+                                       cells_arr, fine_arr,
+                                       with_codes=with_codes), visited)
+                for rows, dists, visited in zip(
+                    rows_b[:, :K_out], dists_b[:, :K_out], ncells_b.tolist())
+            ]
+
+    def _search_wave(self, X, quota, limit, rerank_nb, with_dists,
+                     with_codes):
+        """Answer a wave of index-space queries ``X`` on one snapshot: the
+        brute pass or the probe ladder, then the result rows."""
+        d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
+        nq = X.shape[0]
+        if nb == 0:
+            return [([], 0)] * nq
+        if rerank_nb and d.get("feats") is None:
+            raise ValueError(
+                "rerank_nb requires a resident feature store "
+                "(features with every add)")
+        K, Q, K_stage, R, K_emit = _query_geometry(
+            quota, limit, nb, rerank_nb, Q=self._budget(d, quota, nb))
+        if self._use_brute(d, nq, quota, nb, R):
+            rows_b, dists_b, _, ncells_b, _ = self._run_brute(
+                X, d, nb, R, K_emit)
+            waves = (rows_b, dists_b, ncells_b)
+        else:
+            waves = self._escalate(
+                self._tier(X, d, quota, Q, K_stage, R, K_emit),
+                nq, quota, nb, K_emit)
+        return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
+                                  cells_arr, fine_arr, with_codes)
+
+    @torch.inference_mode()
+    def prewarm_ladder(self, quota=10, limit=None, rerank_nb=None,
+                       waves=(1,)):
+        """Run every ladder rung once (plus the brute plan when the store
+        is resident) on zero raw queries, projected as a wave is, at each
+        wave bucket of ``waves`` (searcher.py:1274-1350). Nothing compiles
+        per shape here, but the first launch of each shape loads the LUT
+        kernel, grows the caching allocator and picks library algorithms;
+        this pays that before traffic. Results are discarded; the yield
+        EMA, the tier hint and the probe stats are left alone.
+
+        :returns: number of rung and brute launches driven"""
+        d, _ids, _cells, _fine, nb = self._snapshot()
+        if nb == 0:
+            return 0
+        if rerank_nb and d.get("feats") is None:
+            rerank_nb = None
+        _K, Q, K_stage, R, K_emit = _query_geometry(
+            quota, limit, nb, rerank_nb, Q=self._budget(d, quota, nb))
+        m = self.model
+        raw_dim = (m.pca_P.shape[0] if isinstance(m, LOPQModelPCA)
+                   else 2 * int(m.Cs.shape[2]))
+        n_progs = 0
+        for w in sorted({wave_bucket(max(1, int(b))) for b in waves}):
+            X = self._project(torch.zeros((w, raw_dim), dtype=torch.float32,
+                                          device=self._wave_devices[0]))
+            # Through the wave cap and the OOM backoff, as under traffic.
+            run_tier = self._tier(X, d, quota, Q, K_stage, R, K_emit)
+            for rung in self._probe_ladder():
+                run_tier(np.arange(w), rung)
+                n_progs += 1
+            if R:
+                self._run_brute(X, d, nb, R, K_emit, count_stats=False)
+                n_progs += 1
+        return n_progs
+
+
+class LOPQSearcherTorch(_WaveDriver, LOPQSearcherBase):
     """Device-resident CSR multi-index with batched probed queries.
 
     The process's first searcher freezes the import heap out of the
@@ -288,9 +614,6 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
     #: 1 GB at V=16384) gives way to searchsorted lookups over the sorted
     #: cell ids (wide-V mode, searcher.py:518-523)
     WIDE_V_THRESHOLD = 8192
-    #: every REPROBE_EVERY-th wave restarts the ladder from its floor so
-    #: the tier hint can shift back down
-    REPROBE_EVERY = 32
     #: device memory (bytes) the rerank store must leave free for the code
     #: buffers, the CSR view, an append chunk and wave transients
     #: (searcher.py:315)
@@ -357,14 +680,7 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
         # fine) atomically so a refresh can't mix old offsets with new
         # codes.
         self._mutlock = threading.RLock()
-        self._tier_hint = 0
-        self._wave_i = 0
-        self._brute_i = 0
-        self._force_reprobe = False
-        self._yield_ema = None
-        #: wave-cap divisor, doubled each time a launch runs out of memory
-        self._wave_oom_shrink = 1
-        self.probe_stats = {"waves": 0, "escalated_queries": 0}
+        self._init_waves([self.device])
         self._codestore = None
         if codestore_path is not None:
             # Durable native store (native/codestore.cpp): appends persist,
@@ -623,207 +939,34 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
 
     # --------------------------------------------------------------- search
 
-    def _probe_ladder(self):
-        return probe_ladder(self.model.V, self.probe_width)
-
-    def _use_brute(self, d, nq, quota, nb, R):
-        """Plan choice for a rerank wave: one exact brute pass over the
-        resident feature store vs the grid probe ladder (see
-        probe.prefer_brute). Only in rerank mode, and never with a pinned
-        probe_width."""
-        if not R or d.get("feats") is None or self.probe_width:
-            return False
-        ladder = self._probe_ladder()
-        Q = _query_geometry(quota, None, nb, R)[1]
-        feats = d["feats"]
-        store = dict(D=feats.shape[1], itemsize=feats.element_size(),
-                     K_pre=R)
-        with self._mutlock:
-            floor = rung_floor(ladder, quota, nb, self.model.V,
-                               self._yield_ema)
-            # Cost the rung the wave will actually start at.
-            start = max(floor, self._tier_hint)
-            if start > floor and prefer_brute(ladder[start:], nq, nb,
-                                              self.model.V, Q, **store):
-                # Hint-driven brute waves bypass the ladder; every
-                # REPROBE_EVERY-th one runs the ladder from the floor so
-                # the hint can decay.
-                self._brute_i += 1
-                if self._brute_i % self.REPROBE_EVERY == 0:
-                    self._force_reprobe = True
-                    return False
-                return True
-        return prefer_brute(ladder[start:], nq, nb, self.model.V, Q,
-                            **store)
-
-    def _pca_args(self):
-        """(pca_P, pca_mu, renorm) of the fused raw-feature path."""
+    def _project(self, X):
+        """Raw features -> index-space queries on the device (the serving
+        path's guarded normalize and PCA, ``query.normalize_project``)."""
         m = self.model
         if isinstance(m, LOPQModelPCA):
-            return m.pca_P, m.pca_mu, m.renorm
-        return None, None, False
+            return normalize_project(X, m.pca_P, m.pca_mu, m.renorm)
+        return normalize_project(X)
 
-    def _run_brute(self, X, d, nb, R, K_emit, raw=False, count_stats=True):
-        """One exact brute wave: packed launch + stats. ``X``: index-space
-        queries, or raw features when ``raw`` (normalize and PCA on the
-        device, the serving fast path). ``count_stats=False`` (prewarm)
-        keeps warm-up launches out of the probe stats."""
-        with span("cis.dispatch"):
-            if raw:
-                pca_P, pca_mu, renorm = self._pca_args()
-                packed = fused_feat_brute(
-                    X, pca_P, pca_mu, d["feats"], d["feats_sq"], nb,
-                    d["n_occ"], K_pre=R, K_out=K_emit, renorm=renorm)
-            else:
-                packed = brute_query_batch(
-                    X, d["feats"], d["feats_sq"], nb, d["n_occ"], K_pre=R,
-                    K_out=K_emit)
-            with span("cis.fetch"):
-                packed = packed.cpu().numpy()
-            if count_stats:
-                with self._mutlock:
-                    self.probe_stats["waves"] += 1
-                    self.probe_stats["brute_waves"] = (
-                        self.probe_stats.get("brute_waves", 0) + 1)
-            return unpack_query_out(packed, K_emit)
-
-    def _bytes_per_query(self, Q, rung, R):
-        """Device transients of one query of a wave at ``rung``, counted
-        from the tensors :func:`lopq_query` (and the rerank) allocate:
-
-        - coarse distances and, off the LUT route, the rotated residuals
-          of every cluster: ~3 x [V, Dh] float32;
-        - the probed region: grid, sort keys and permutation, cell ids,
-          counts, starts and prefix sums: ~14 int64-sized values per cell
-          (the sort-free wide square path holds fewer at its peak: the
-          grid, counts, the global prefix table, the sort's values,
-          permutation and workspace, and the sorted counts' cumsum,
-          ~60 B a cell);
-        - per candidate slot: slot metadata (~12 int64) plus the candidate
-          codes and the gather indices and values (~20 B per code);
-        - the LUT route's tables [2, B, F, S] float32, or the direct
-          route's gathered rotated residuals and differences (~3 x Dh
-          float32 per slot);
-        - the rerank's gathered features in the store's dtype, their
-          float32 upcast (a bfloat16 store only) and the differences.
-
-        ``chip_smoke.py`` holds this against the measured peak allocation
-        of a 100-query wave and fails if the model is below it. At 10.5M
-        rows, V=4096, M=8, D=256, quota 10k on an NVIDIA H100 80GB HBM3
-        at 700 W the model is 2.40x the measured peak at rung 64, 1.59x
-        at (128, 8) and 1.69x at (128, 8) with rerank_nb=1000. On the wide
-        square rung B=256 (G = 65,536) it is 2.17x at that size (V=4096,
-        wave of 100) and 2.97x on the face index (8,388,608 rows, V=256,
-        M=8, D=128, wave of 32), on the same card.
-        """
-        m = self.model
-        V, M, Dh = m.V, m.M, int(m.Cs.shape[2])
-        F, S = m.num_fine_splits, m.subquantizer_clusters
-        B, SB = rung_parts(rung)
-        B = min(B, V)
-        G = rung_cells(rung, V)
-        per_q = 3 * V * Dh * 4 + G * 112 + Q * (96 + 20 * M)
-        if uses_lut(B, SB, V, Q):
-            per_q += 2 * B * F * S * 4
+    def _launch_rung(self, X, d, quota, V, B, Q, K, R, K_out, SB):
+        """One rung of the probed query (with the exact rerank when ``R``)
+        over index-space queries ``X``: packed [nq, 2 * K_emit + 3]."""
+        tables = (d["Cs"], d["Rs"], d["mus"], d["subs"], d["codes"],
+                  d["cell_start"], d["order"])
+        cs = d["cells_sorted"] if d["cell_start"] is None else None
+        if R:
+            out = lopq_query_rerank(X, d["feats"], *tables, quota, V=V, B=B,
+                                    Q=Q, K=K, R=R, K_out=K_out, SB=SB,
+                                    cells_sorted=cs)
         else:
-            per_q += Q * Dh * 12
-        if R and self._buf_feats is not None:
-            esz = self._buf_feats.element_size()
-            per_q += R * int(self._buf_feats.shape[1]) * (
-                8 + (esz if esz < 4 else 0))
-        return per_q
+            out = lopq_query_orig(X, *tables, quota, V=V, B=B, Q=Q, K=K,
+                                  SB=SB, cells_sorted=cs)
+        return pack_query_out(*out)
 
-    def _wave_cap(self, Q, R):
-        """Per-launch query cap as a function of the rung: half of the
-        device's free memory over the per-query transients (the half is
-        headroom for the caching allocator's fragmentation, which the
-        measured peaks do not include)."""
-        free = free_bytes(self.device)
-        return lambda rung: max(
-            1, int(free / 2 / self._bytes_per_query(Q, rung, R)))
-
-    def _chunk_waves(self, run_tier, nq_cap):
-        """Wrap ``run_tier`` so waves split into <= nq_cap(rung) query
-        launches. A launch that runs out of device memory halves this
-        searcher's cap and retries, down to single-query launches."""
-
-        def wrapped(idx, rung):
-            with self._mutlock:
-                shrink = self._wave_oom_shrink
-            cap = max(1, nq_cap(rung) // shrink)
-            if len(idx) <= cap:
-                try:
-                    return run_tier(idx, rung)
-                except torch.cuda.OutOfMemoryError:
-                    if cap <= 1:
-                        raise
-                    with self._mutlock:
-                        self._wave_oom_shrink = max(self._wave_oom_shrink,
-                                                    2 * shrink)
-                    return wrapped(idx, rung)
-            parts = [wrapped(idx[i:i + cap], rung)
-                     for i in range(0, len(idx), cap)]
-            return tuple(np.concatenate([p[j] for p in parts])
-                         for j in range(5))
-        return wrapped
-
-    def _escalate(self, run_tier, n, quota, nb, K_pad):
-        """Ladder escalation with a quota-aware rung floor plus tier-hint
-        hysteresis (the policy of the JAX searcher's ``_escalate``)."""
-        with span("cis.ladder"):
-            ladder = self._probe_ladder()
-            with self._mutlock:
-                floor = rung_floor(ladder, quota, nb, self.model.V,
-                                   self._yield_ema)
-                start = min(max(self._tier_hint, floor), len(ladder) - 1)
-                self._wave_i += 1
-                if start > floor and (
-                        self._wave_i % self.REPROBE_EVERY == 0
-                        or self._force_reprobe):
-                    start = floor
-                self._force_reprobe = False
-            (rows, dists, ncells, frac_short, settle, yield_obs,
-             settled) = escalate_probe(
-                run_tier, ladder[start:], n, quota, nb, K_pad)
-            with self._mutlock:
-                # Jump the hint to the rung where >= 90% of this wave
-                # settled; an unsettled wave moves it only when most
-                # queries escalated.
-                new_hint = min(start + settle, len(ladder) - 1)
-                if not settled and frac_short < 0.5:
-                    new_hint = self._tier_hint
-                if start == floor:
-                    self._tier_hint = new_hint   # full ladder view: may decay
-                elif settle > 0:
-                    # Escalated past its start: evidence for a wider hint.
-                    self._tier_hint = max(self._tier_hint, new_hint)
-                if yield_obs is not None:
-                    self._yield_ema = (yield_obs if self._yield_ema is None
-                                       else 0.7 * self._yield_ema
-                                       + 0.3 * yield_obs)
-                self.probe_stats["waves"] += 1
-                self.probe_stats["escalated_queries"] += int(
-                    round(frac_short * n))
-                self.probe_stats.setdefault("wave_log", []).append(
-                    [start, round(float(frac_short), 3), start + settle,
-                     floor, None if self._yield_ema is None
-                     else round(float(self._yield_ema), 2)])
-                del self.probe_stats["wave_log"][:-64]
-        return rows, dists, ncells
-
-    def _wave_results(self, waves, K, K_emit, with_dists, ids_arr,
-                      cells_arr, fine_arr, with_codes):
-        """Per-query (results, visited) pairs of an answered wave."""
-        rows_b, dists_b, ncells_b = waves
-        K_out = min(K, K_emit)
-        with span("cis.results"):
-            return [
-                (self._rows_to_results(rows, dists, with_dists, ids_arr,
-                                       cells_arr, fine_arr,
-                                       with_codes=with_codes), visited)
-                for rows, dists, visited in zip(
-                    rows_b[:, :K_out], dists_b[:, :K_out], ncells_b.tolist())
-            ]
+    def _launch_brute(self, X, d, nb, R, K_emit):
+        """The exact brute pass over the resident store: packed
+        [nq, 2 * K_emit + 3]."""
+        return brute_query_batch(X, d["feats"], d["feats_sq"], nb,
+                                 d["n_occ"], K_pre=R, K_out=K_emit)
 
     @torch.inference_mode()
     def search_batch(self, X, quota=10, limit=None, with_dists=False,
@@ -840,81 +983,16 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
             X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
             if isinstance(self.model, LOPQModelPCA):
                 X = self.model.apply_PCA(X)
-            d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
-            nq = X.shape[0]
-            if nb == 0:
-                return [([], 0)] * nq
-            V = self.model.V
-            if rerank_nb and d.get("feats") is None:
-                raise ValueError(
-                    "rerank_nb requires a resident feature store "
-                    "(add_codes(..., feats=...) for every add)")
-            K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
-                                                       rerank_nb)
-
-            if self._use_brute(d, nq, quota, nb, R):
-                rows_b, dists_b, _, ncells_b, _ = self._run_brute(
-                    X, d, nb, R, K_emit)
-                waves = (rows_b, dists_b, ncells_b)
-            else:
-                def run_tier(idx, rung):
-                    with span("cis.dispatch"):
-                        B, SB = rung_parts(rung)
-                        Xi = X if len(idx) == nq else X[torch.from_numpy(
-                            np.asarray(idx)).to(self.device)]
-                        tables = (d["Cs"], d["Rs"], d["mus"], d["subs"],
-                                  d["codes"], d["cell_start"], d["order"])
-                        cs = (d["cells_sorted"] if d["cell_start"] is None
-                              else None)
-                        if R:
-                            out = lopq_query_rerank(
-                                Xi, d["feats"], *tables, quota, V=V, B=B,
-                                Q=Q, K=K_stage, R=R, K_out=K_emit, SB=SB,
-                                cells_sorted=cs)
-                        else:
-                            out = lopq_query_orig(
-                                Xi, *tables, quota, V=V, B=B, Q=Q,
-                                K=K_stage, SB=SB, cells_sorted=cs)
-                        packed = pack_query_out(*out)
-                        with span("cis.fetch"):
-                            packed = packed.cpu().numpy()  # one copy
-                        return unpack_query_out(packed, K_emit)
-
-                waves = self._escalate(
-                    self._chunk_waves(run_tier, self._wave_cap(Q, R)),
-                    nq, quota, nb, K_emit)
-            return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
-                                      cells_arr, fine_arr, with_codes)
-
-    def _fused_tier(self, X, d, quota, Q, K_stage, R, K_emit):
-        """``run_tier`` of the raw-feature path: one rung of
-        ``fused_feat_query`` over the rows ``idx`` of ``X``."""
-        pca_P, pca_mu, renorm = self._pca_args()
-        V = self.model.V
-
-        def run_tier(idx, rung):
-            with span("cis.dispatch"):
-                B, SB = rung_parts(rung)
-                Xi = X if len(idx) == X.shape[0] else X[torch.from_numpy(
-                    np.asarray(idx)).to(X.device)]
-                packed = fused_feat_query(
-                    Xi, pca_P, pca_mu, d["Cs"], d["Rs"], d["mus"], d["subs"],
-                    d["codes"], d["cell_start"], d["order"], quota,
-                    d["feats"], V=V, B=B, Q=Q, K=K_stage, R=R, K_out=K_emit,
-                    renorm=renorm, SB=SB,
-                    cells_sorted=(d["cells_sorted"] if d["cell_start"]
-                                  is None else None))
-                with span("cis.fetch"):
-                    packed = packed.cpu().numpy()
-                return unpack_query_out(packed, K_emit)
-        return run_tier
+            return self._search_wave(X, quota, limit, rerank_nb, with_dists,
+                                     with_codes)
 
     @torch.inference_mode()
     def search_device_feats(self, feats_dev, quota=10, limit=None,
                             with_dists=True, rerank_nb=None, n_valid=None):
         """Serving fast path (searcher.py:1176-1272): RAW features straight
         from the featurizer forward (before normalization and PCA) ->
-        results, one device-to-host copy per probe tier. With ``rerank_nb``
+        results, one device-to-host copy per probe tier. The wave is
+        normalized and projected once on the device; with ``rerank_nb``
         and a resident feature store the exact rerank runs on the device
         too. Results carry code=None. Returns [(results, visited)] per
         query, like :meth:`search_batch`.
@@ -927,69 +1005,10 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
             X = torch.as_tensor(feats_dev).to(self.device)
             if X.ndim == 1:
                 X = X[None, :]
-            d, ids_arr, cells_arr, fine_arr, nb = self._snapshot()
-            nq = int(n_valid) if n_valid is not None else int(X.shape[0])
-            if nb == 0:
-                return [([], 0)] * nq
-            X = X[:nq]
-            if rerank_nb and d.get("feats") is None:
-                raise ValueError(
-                    "rerank_nb requires a resident feature store "
-                    "(add_codes(..., feats=...) for every add)")
-            K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
-                                                       rerank_nb)
-            if self._use_brute(d, nq, quota, nb, R):
-                rows_b, dists_b, _, ncells_b, _ = self._run_brute(
-                    X, d, nb, R, K_emit, raw=True)
-                waves = (rows_b, dists_b, ncells_b)
-            else:
-                waves = self._escalate(
-                    self._chunk_waves(self._fused_tier(X, d, quota, Q,
-                                                       K_stage, R, K_emit),
-                                      self._wave_cap(Q, R)),
-                    nq, quota, nb, K_emit)
-            return self._wave_results(waves, K, K_emit, with_dists, ids_arr,
-                                      cells_arr, fine_arr, with_codes=False)
-
-    @torch.inference_mode()
-    def prewarm_ladder(self, quota=10, limit=None, rerank_nb=None,
-                       waves=(1,)):
-        """Run every ladder rung of the raw-feature path once (plus the
-        brute plan when the store is resident) on zero queries, at each
-        wave bucket of ``waves`` (searcher.py:1274-1350). Nothing compiles
-        per shape here, but the first launch of each shape loads the LUT
-        kernel, grows the caching allocator and picks library algorithms;
-        this pays that before traffic. Results are discarded; the yield
-        EMA, the tier hint and the probe stats are left alone.
-
-        :returns: number of rung and brute launches driven"""
-        d, _ids, _cells, _fine, nb = self._snapshot()
-        if nb == 0:
-            return 0
-        if rerank_nb and d.get("feats") is None:
-            rerank_nb = None
-        _K, Q, K_stage, R, K_emit = _query_geometry(quota, limit, nb,
-                                                    rerank_nb)
-        m = self.model
-        feat_dim = (m.pca_P.shape[0] if isinstance(m, LOPQModelPCA)
-                    else 2 * int(m.Cs.shape[2]))
-        n_progs = 0
-        for w in sorted({wave_bucket(max(1, int(b))) for b in waves}):
-            X = torch.zeros((w, feat_dim), dtype=torch.float32,
-                            device=self.device)
-            # Through _chunk_waves: the wave cap and the OOM backoff apply
-            # as they would under live traffic.
-            wrapped = self._chunk_waves(
-                self._fused_tier(X, d, quota, Q, K_stage, R, K_emit),
-                self._wave_cap(Q, R))
-            for rung in self._probe_ladder():
-                wrapped(np.arange(w), rung)
-                n_progs += 1
-            if R:
-                self._run_brute(X, d, nb, R, K_emit, raw=True,
-                                count_stats=False)
-                n_progs += 1
-        return n_progs
+            if n_valid is not None:
+                X = X[:int(n_valid)]
+            return self._search_wave(self._project(X), quota, limit,
+                                     rerank_nb, with_dists, False)
 
     @torch.inference_mode()
     def search(self, x, quota=10, limit=None, with_dists=False,
@@ -1004,33 +1023,17 @@ class LOPQSearcherTorch(Settled, LOPQSearcherBase):
 
     def _rows_to_results(self, rows, dists, with_dists, ids_arr, cells_arr,
                          fine_arr, with_codes=True):
-        ids = ids_arr
-        if not with_codes:
-            mask = (rows >= 0) & np.isfinite(dists)
-            sel_ids = ids[rows[mask]]
-            # tolist() unboxes an int64 id array in C (per-id _pyid calls
-            # were most of a 100-query wave's host time).
-            sel_ids = (sel_ids.tolist() if sel_ids.dtype != object
-                       else [_pyid(i) for i in sel_ids])
-            # tuple.__new__ mapped over the rows builds each namedtuple in
-            # C; calling ResultDist(...) runs its Python __new__ once a row.
-            if with_dists:
-                return list(map(tuple.__new__, repeat(ResultDist),
-                                zip(sel_ids, repeat(None),
-                                    dists[mask].tolist())))
-            return list(map(tuple.__new__, repeat(Result),
-                            zip(sel_ids, repeat(None))))
-        V_, S = self.model.V, self.model.subquantizer_clusters
-        cdt, fdt = code_dtype_for(V_), code_dtype_for(S)
-        out = []
-        for r, dist in zip(rows, dists):
-            if r < 0 or not np.isfinite(dist):
-                continue
-            coarse = (cdt(cells_arr[r] // V_), cdt(cells_arr[r] % V_))
-            fine = tuple(fdt(v) for v in fine_arr[r])
-            code = LOPQCode(coarse, fine)
-            if with_dists:
-                out.append(ResultDist(_pyid(ids[r]), code, float(dist)))
-            else:
-                out.append(Result(_pyid(ids[r]), code))
-        return out
+        rows, ids, dists = _valid_rows(rows, dists, ids_arr)
+        codes = repeat(None)
+        if with_codes:
+            V_, S = self.model.V, self.model.subquantizer_clusters
+            cdt, fdt = code_dtype_for(V_), code_dtype_for(S)
+            codes = [LOPQCode((cdt(c // V_), cdt(c % V_)),
+                              tuple(fdt(v) for v in f))
+                     for c, f in zip(cells_arr[rows], fine_arr[rows])]
+        # tuple.__new__ mapped over the rows builds each namedtuple in C;
+        # calling ResultDist(...) runs its Python __new__ once a row.
+        if with_dists:
+            return list(map(tuple.__new__, repeat(ResultDist),
+                            zip(ids, codes, dists)))
+        return list(map(tuple.__new__, repeat(Result), zip(ids, codes)))

@@ -37,9 +37,12 @@ Differences from the JAX package:
 - The rerank store's dtype plan (``LOPQSearcherTorch._plan_rerank_dtype``)
   is applied per device to every shard it holds, so logical shards share
   their card's budget.
-- The per-launch wave cap is the single-device searcher's (free memory of
-  the tightest device over ``_bytes_per_query``, halved on an
-  out-of-memory launch).
+- The wave below the entry points (plan choice, brute pass or probe
+  ladder, the per-launch wave cap with its out-of-memory backoff, the
+  result rows, the prewarm) is the single-device searcher's
+  (``index.searcher._WaveDriver``); the index supplies its snapshot, the
+  fan-out and merge of a rung and of the brute pass, and the per-shard
+  sizes of the plan's cost and of the wave cap.
 """
 
 import threading
@@ -48,40 +51,32 @@ import numpy as np
 import torch
 
 from columbiaimagesearch_tpu_torch.common.heap import Settled
-from columbiaimagesearch_tpu_torch.device import free_bytes
+from columbiaimagesearch_tpu_torch.common.profiling import span
 from columbiaimagesearch_tpu_torch.index.csr import (
     append_and_build_csr,
     append_rows,
 )
 from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
 from columbiaimagesearch_tpu_torch.index.model import LOPQModelPCA
-from columbiaimagesearch_tpu_torch.index.probe import (
-    prefer_brute,
-    probe_ladder,
-    rung_floor,
-    rung_parts,
-)
 from columbiaimagesearch_tpu_torch.index.query import (
     _ascending,
     brute_query_batch,
     lopq_query,
     pack_query_out,
-    unpack_query_out,
 )
 from columbiaimagesearch_tpu_torch.index.searcher import (
     LOPQSearcherTorch,
     Result,
     ResultDist,
-    _pyid,
-    _query_geometry,
     _row_norms_sq,
+    _valid_rows,
+    _WaveDriver,
 )
 from columbiaimagesearch_tpu_torch.ops.kmeans import _assign_rows, _pick_chunk
 from columbiaimagesearch_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
 from columbiaimagesearch_tpu_torch.utils.chunking import (
     round_up,
     store_capacity,
-    wave_bucket,
 )
 from columbiaimagesearch_tpu_torch.utils.codes import (
     IncrementalDedup,
@@ -161,7 +156,7 @@ def dp_encode(mesh, Cs, Rs, mus, subs, X, chunk: int = 2048):
     return coarse, fine
 
 
-class ShardedLOPQIndex(Settled):
+class ShardedLOPQIndex(_WaveDriver):
     """Row-sharded CSR multi-index over a mesh, with incremental append
     (sharded.py:84-932).
 
@@ -174,21 +169,13 @@ class ShardedLOPQIndex(Settled):
     lower merged index first on ties).
 
     Like ``LOPQSearcherTorch``, the process's first one freezes the import
-    heap before it is allocated (``common/heap.py``, ``heap_stats``).
+    heap before it is allocated (``common/heap.py``, ``heap_stats``), and
+    its waves run the single device's wave code and policy (``_WaveDriver``,
+    sharded.py:726-925).
     """
 
-    #: tier-hint hysteresis period (LOPQSearcherTorch.REPROBE_EVERY)
-    REPROBE_EVERY = 32
     #: per-shard capacities are multiples of this
     CHUNK_QUANTUM = 1024
-
-    #: the single-device searcher's wave cap with its out-of-memory
-    #: backoff, its per-query transient model, and its ladder escalation
-    #: with the tier hint and yield EMA (the same policy, sharded.py:
-    #: 822-915)
-    _chunk_waves = LOPQSearcherTorch._chunk_waves
-    _bytes_per_query = LOPQSearcherTorch._bytes_per_query
-    _escalate = LOPQSearcherTorch._escalate
 
     def __init__(self, model, mesh=None, probe_width=None,
                  rerank_dtype="auto", capacity_hint=0):
@@ -220,18 +207,11 @@ class ShardedLOPQIndex(Settled):
         self._n_dev_rows = 0      # rows present in the device buffers
         self._tables = {}         # device -> (Cs, Rs, mus, subs)
         self._dev = None          # query snapshot (see _upload_locked)
-        #: serving observability (see LOPQSearcherTorch.probe_stats)
-        self.probe_stats = {"waves": 0, "escalated_queries": 0}
         self._mutlock = threading.Lock()   # stats, hint, EMA, wave cap
         # Uploads hold this for their whole mutation and queries snapshot
         # under it, so a query never mixes two refreshes' views.
         self._swaplock = threading.RLock()
-        self._tier_hint = 0
-        self._wave_i = 0
-        self._yield_ema = None
-        self._brute_i = 0
-        self._force_reprobe = False
-        self._wave_oom_shrink = 1
+        self._init_waves(self.devices)
 
     @property
     def has_rerank_feats(self):
@@ -425,7 +405,9 @@ class ShardedLOPQIndex(Settled):
                 occ = o if occ is None else occ | o
             n_occ = int(occ.sum())
         # Atomic swap: in-flight queries keep their consistent snapshot.
-        self._dev = dict(shards=snap, n_occ=n_occ)
+        # ``feats``: the first shard's store (the plan costs its rows).
+        self._dev = dict(shards=snap, n_occ=n_occ, feats=snap[0]["feats"],
+                         cap_per=self._cap_per)
 
     def _shard_feats(self, old, new, n_old, dev, fdt, rebuild):
         """One shard's feature buffer after appending ``new`` rows at slot
@@ -491,7 +473,7 @@ class ShardedLOPQIndex(Settled):
         ok = torch.stack([p[4].to(dev0) for p in parts]).all(dim=0)
         return pack_query_out(m_rows, m_dists, total, ncells, ok)
 
-    def _run_brute(self, X, d, nb, R, K_emit):
+    def _launch_brute(self, X, d, nb, R, K_emit):
         """The exact brute plan across shards (sharded.py:572-662): each
         shard's ``brute_query_batch`` over its own rows, then the merge.
         Per-shard top-K_out sets cover the global top-K_out, so the merge
@@ -530,138 +512,55 @@ class ShardedLOPQIndex(Settled):
             sh["feats_sq"] = _row_norms_sq(sh["feats"])
         return sh["feats_sq"]
 
-    def _probe_ladder(self):
-        return probe_ladder(self.model.V, self.probe_width)
+    def _snapshot(self):
+        """A consistent (snapshot, ids, None, None, rows) view for one
+        wave, taken under the swap lock."""
+        with self._swaplock:
+            return self._dev, self._ids, None, None, self._n_dev_rows
 
-    def _use_brute(self, d, nq, quota, nb, R):
-        """Plan choice for a rerank wave (sharded.py:664-694): the single
-        device's policy with both sides costed per shard (each shard
-        streams its own rows and walks its own CSR)."""
-        if not R or not self._feats_ok or self.probe_width:
-            return False
-        ladder = self._probe_ladder()
-        nb_shard = -(-nb // len(self.devices))
-        Q = self._shard_budget(quota, self._cap_per)
-        feats = d["shards"][0]["feats"]
-        store = dict(D=feats.shape[1], itemsize=feats.element_size(),
-                     K_pre=R)
-        with self._mutlock:
-            floor = rung_floor(ladder, quota, nb, self.model.V,
-                               self._yield_ema)
-            start = max(floor, self._tier_hint)
-            if start > floor and prefer_brute(ladder[start:], nq, nb_shard,
-                                              self.model.V, Q, **store):
-                self._brute_i += 1
-                if self._brute_i % self.REPROBE_EVERY == 0:
-                    self._force_reprobe = True
-                    return False
-                return True
-        return prefer_brute(ladder[start:], nq, nb_shard, self.model.V, Q,
-                            **store)
+    def _launch_rung(self, X, d, quota, V, B, Q, K, R, K_out, SB):
+        """One rung: the fan-out and merge of :meth:`_run_shards`."""
+        return self._run_shards(X, d, quota, V, B, Q, K, R, K_out, SB)
 
-    @staticmethod
-    def _shard_budget(quota, cap_per):
+    def _scan_rows(self, nb):
+        """Each shard streams its own rows and walks its own CSR
+        (sharded.py:664-694)."""
+        return -(-nb // len(self.devices))
+
+    def _budget(self, d, quota, nb):
         """A shard's candidate budget: each shard scans its own CSR, so the
         budget scales with the shard's capacity, not the global index
         size."""
         return min(round_up(int(quota * 1.5) + 256, 1024),
-                   round_up(max(cap_per, 256), 256))
+                   round_up(max(d["cap_per"], 256), 256))
 
-    def _wave_cap(self, Q, K):
-        """Per-launch query cap: the single device's rule on the device
-        with the least free memory (each shard's rung transients are freed
-        before the next shard's query is launched). ``K``: the rerank
-        depth a shard scores exactly (0 = no rerank)."""
-        free = min(free_bytes(dev) for dev in set(self.devices))
-        return lambda rung: max(
-            1, int(free / 2 / self._bytes_per_query(Q, rung, K)))
+    def _exact_rows(self, K_stage, R):
+        """A shard scores every one of its ``K_stage`` candidates exactly
+        before the merge keeps ``R``."""
+        return K_stage if R else 0
+
+    def _project(self, X):
+        """Raw queries -> index-space queries on the first device."""
+        if isinstance(self.model, LOPQModelPCA):
+            return self.model.apply_PCA(X).to(self.devices[0])
+        return X
 
     @torch.inference_mode()
     def search_batch(self, X, quota=10, limit=None, rerank_nb=None):
         """Answer a wave on every shard; a list of ([(id, dist)],
         cells visited) per query."""
-        return self._search_batch_impl(X, quota=quota, limit=limit,
-                                       rerank_nb=rerank_nb)
+        with span("cis.search"):
+            X = torch.as_tensor(X, dtype=torch.float32).to(self.devices[0])
+            if X.ndim == 1:
+                X = X[None, :]
+            return self._search_wave(self._project(X), quota, limit,
+                                     rerank_nb, True, False)
 
-    def _search_batch_impl(self, X, quota=10, limit=None, rerank_nb=None,
-                           _prewarm=False):
-        """The wave driver (sharded.py:726-925): the brute plan or the
-        probe ladder (``_escalate``, the single device's tier hint and
-        yield EMA).
-        ``_prewarm`` drives every rung (and the brute plan with a resident
-        store) and touches neither stats nor hint."""
-        X = torch.as_tensor(X, dtype=torch.float32).to(self.devices[0])
-        if X.ndim == 1:
-            X = X[None, :]
-        if isinstance(self.model, LOPQModelPCA):
-            X = self.model.apply_PCA(X).to(self.devices[0])
-        nq = X.shape[0]
-        nb = self.nb_indexed
-        if nb == 0:
-            return [([], 0)] * nq
-        V = self.model.V
-        with self._swaplock:
-            d = self._dev
-            ids_snap = self._ids
-            cap_per = self._cap_per
-            has_feats = d["shards"][0]["feats"] is not None
-        if rerank_nb and not has_feats:
-            raise ValueError(
-                "rerank_nb requires a resident feature store "
-                "(append(..., feats=...) for every append)")
-        K, Q, K_stage, R, K_emit = _query_geometry(
-            quota, limit, max(nb, 1), rerank_nb,
-            Q=self._shard_budget(quota, cap_per))
-        K_pad = K_emit if R else K_stage
-
-        if not _prewarm and self._use_brute(d, nq, quota, nb, R):
-            packed = self._run_brute(X, d, nb, R, K_emit).cpu().numpy()
-            rows_b, dists_b, _total, ncells_b, _ok = unpack_query_out(
-                packed, K_emit)
-            with self._mutlock:
-                self.probe_stats["waves"] += 1
-                self.probe_stats["brute_waves"] = (
-                    self.probe_stats.get("brute_waves", 0) + 1)
-            return self._pairs(rows_b, dists_b, ncells_b, min(K, K_emit),
-                               ids_snap)
-
-        def run_tier(idx, rung):
-            B, SB = rung_parts(rung)
-            Xi = X if len(idx) == nq else X[torch.from_numpy(
-                np.asarray(idx)).to(X.device)]
-            packed = self._run_shards(Xi, d, quota, V, B, Q, K_stage, R,
-                                      K_emit, SB).cpu().numpy()  # one sync
-            return unpack_query_out(packed, K_pad)
-
-        wrapped = self._chunk_waves(run_tier,
-                                    self._wave_cap(Q, K_stage if R else 0))
-        if _prewarm:
-            for rung in self._probe_ladder():
-                wrapped(np.arange(nq), rung)
-            if R:
-                self._run_brute(X, d, nb, R, K_emit).cpu()
-            return [([], 0)] * nq
-        rows_b, dists_b, ncells_b = self._escalate(wrapped, nq, quota, nb,
-                                                   K_pad)
-        return self._pairs(rows_b, dists_b, ncells_b,
-                           min(K, K_emit) if R else K, ids_snap)
-
-    @staticmethod
-    def _pairs(rows_b, dists_b, ncells_b, K_out, ids_snap):
-        """Per query ([(id, dist)], cells visited), the valid rows only;
-        ``tolist`` unboxes int64 ids in C (per-id scalar reads are most of
-        a wave's host time at 100 x 100 results)."""
-        rows = np.asarray(rows_b)[:, :K_out]
-        dists = np.asarray(dists_b)[:, :K_out]
-        out = []
-        for i in range(len(rows)):
-            keep = (rows[i] >= 0) & np.isfinite(dists[i])
-            sel = ids_snap[rows[i][keep]]
-            ids = (sel.tolist() if sel.dtype != object
-                   else [_pyid(x) for x in sel])
-            out.append((list(zip(ids, dists[i][keep].tolist())),
-                        int(ncells_b[i])))
-        return out
+    def _rows_to_results(self, rows, dists, with_dists, ids_arr, *codes,
+                         with_codes=False):
+        """One query's [(id, dist)] pairs, the valid rows only."""
+        _rows, ids, dists = _valid_rows(rows, dists, ids_arr)
+        return list(zip(ids, dists))
 
     def search(self, x, quota=10, limit=None, rerank_nb=None):
         """One query on every shard: ([(id, dist)], cells visited)."""
@@ -777,23 +676,8 @@ class ShardedLOPQSearcher(Settled):
         results are discarded and the stats, hint and EMA left alone.
         Returns the number of rung and brute launches driven."""
         self._maybe_build()
-        idx = self.index
-        if idx.nb_indexed == 0:
-            return 0
-        if rerank_nb and not idx.has_rerank_feats:
-            rerank_nb = None
-        m = self.model
-        D = (m.pca_P.shape[0] if isinstance(m, LOPQModelPCA)
-             else 2 * int(m.Cs.shape[2]))
-        n_rungs = len(idx._probe_ladder())
-        n = 0
-        with torch.inference_mode():
-            for w in sorted({wave_bucket(max(1, int(b))) for b in waves}):
-                X = torch.zeros((w, D), dtype=torch.float32)
-                idx._search_batch_impl(X, quota=quota, limit=limit,
-                                       rerank_nb=rerank_nb, _prewarm=True)
-                n += n_rungs + (1 if rerank_nb else 0)
-        return n
+        return self.index.prewarm_ladder(quota=quota, limit=limit,
+                                         rerank_nb=rerank_nb, waves=waves)
 
     @staticmethod
     def _to_results(pairs, with_dists):

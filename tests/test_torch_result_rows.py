@@ -1,7 +1,8 @@
-"""The result rows of a search wave: ``LOPQSearcherTorch._wave_results``
+"""The result rows of a search wave: ``_wave_results`` (``_WaveDriver``)
 against a plain construction, one ``ResultDist(int(id), None, float(d))``
-per valid row, and the per-query ``_rows_to_results`` seam that
-``portbench``'s fault test patches.
+per valid row on the single-device searcher and one ``(id, float(d))``
+pair on the sharded index, and the per-query ``_rows_to_results`` seam
+that ``portbench``'s fault test patches.
 """
 
 from unittest import mock
@@ -16,6 +17,8 @@ from columbiaimagesearch_tpu_torch.index.searcher import (
     Result,
     ResultDist,
 )
+from columbiaimagesearch_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
+from columbiaimagesearch_tpu_torch.parallel.sharded import ShardedLOPQIndex
 
 from tests.oracle_lopq import random_params
 
@@ -30,6 +33,18 @@ def searcher():
     s.add_codes((rng.randint(0, 4, (N_IDS, 2)), rng.randint(0, 4, (N_IDS, 2))),
                 [f"img{i}" for i in range(N_IDS)])
     return s
+
+
+@pytest.fixture(scope="module")
+def sharded():
+    rng = np.random.RandomState(7)
+    params = random_params(rng, V=4, M=2, S=4, D=8)
+    idx = ShardedLOPQIndex(LOPQModel.from_numpy(*params, device="cpu"),
+                           mesh=make_mesh(axis=SHARD_AXIS,
+                                          devices=["cpu"] * 2))
+    idx.build(rng.randint(0, 4, (N_IDS, 2)), rng.randint(0, 4, (N_IDS, 2)),
+              [f"img{i}" for i in range(N_IDS)])
+    return idx
 
 
 def _wave():
@@ -87,17 +102,35 @@ def _assert_same(got, want, with_dists):
     assert len({id(res) for res, _ in got}) == len(got)
 
 
+def _assert_pairs(got, want):
+    """The sharded index's rows: ([(id, dist)], visited) a query."""
+    want = [([(r.id, r.dist) for r in res], n) for res, n in want]
+    assert got == want
+    for pairs, visited in got:
+        assert type(pairs) is list and type(visited) is int
+        for pair in pairs:
+            assert type(pair) is tuple and type(pair[1]) is float
+            assert type(pair[0]) is type(want[0][0][0][0])
+
+
 @pytest.mark.parametrize("K", [K_EMIT, 4],
                          ids=["K_out=K_emit", "K_out<K_emit"])
 @pytest.mark.parametrize("with_dists", [True, False])
 @pytest.mark.parametrize("id_kind", ["int64", "str", "np_int64"])
-def test_wave_results_match_plain_rows(searcher, id_kind, with_dists, K):
+@pytest.mark.parametrize("entry", ["searcher", "sharded"])
+def test_wave_results_match_plain_rows(request, entry, id_kind, with_dists,
+                                       K):
+    s = request.getfixturevalue(entry)
     rows, dists, ncells = _wave()
     ids = _ids(id_kind)
-    got = searcher._wave_results((rows, dists, ncells), K, K_EMIT,
-                                 with_dists, ids, None, None, False)
-    want = _plain(rows, dists, ncells, ids, K, with_dists)
-    _assert_same(got, want, with_dists)
+    got = s._wave_results((rows, dists, ncells), K, K_EMIT, with_dists, ids,
+                          None, None, False)
+    if entry == "sharded":
+        want = _plain(rows, dists, ncells, ids, K, True)
+        _assert_pairs(got, want)
+    else:
+        want = _plain(rows, dists, ncells, ids, K, with_dists)
+        _assert_same(got, want, with_dists)
     assert [len(res) for res, _ in got] == (
         [6, 3, 3, 0] if K == K_EMIT else [4, 3, 3, 0])
     assert type(want[0][0][0].id) is (str if id_kind == "str" else int)

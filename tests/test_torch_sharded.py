@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from columbiaimagesearch_tpu_torch import device as device_mod
+from columbiaimagesearch_tpu_torch.index import searcher as searcher_mod
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel, LOPQModelPCA
 from columbiaimagesearch_tpu_torch.index.probe import probe_ladder
 from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcher
-from columbiaimagesearch_tpu_torch.parallel import sharded as sharded_mod
 from columbiaimagesearch_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
 from columbiaimagesearch_tpu_torch.parallel.sharded import (
     ShardedLOPQIndex,
@@ -54,13 +54,14 @@ def _index_pair(jm, tm, **kw):
 
 @pytest.fixture
 def pin_plan(monkeypatch):
-    """Pin the brute-vs-ladder choice in both packages."""
+    """Pin the brute-vs-ladder choice in both packages (the port's sharded
+    index makes it in the wave code it shares with the single device)."""
     from columbiaimagesearch_tpu.index import tpu_query
 
     def pin(brute):
         monkeypatch.setattr(tpu_query, "prefer_brute",
                             lambda *a, **k: brute)
-        monkeypatch.setattr(sharded_mod, "prefer_brute",
+        monkeypatch.setattr(searcher_mod, "prefer_brute",
                             lambda *a, **k: brute)
     return pin
 

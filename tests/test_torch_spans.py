@@ -1,7 +1,9 @@
 """The port's search-path spans (``common/profiling.py`` ``span`` and its
 ``gc.callbacks`` hook) under the CPU profiler: which ``cis.`` spans a wave
-opens and how they nest, the collections' spans, nothing entered while no
-profiler records, and the same answers with the profiler on and off."""
+opens and how they nest (through both of the single-device searcher's
+entry points and the sharded index's, which share one wave path), the
+collections' spans, nothing entered while no profiler records, and the
+same answers with the profiler on and off."""
 
 import gc
 import json
@@ -13,6 +15,8 @@ import torch
 from columbiaimagesearch_tpu_torch.common import profiling
 from columbiaimagesearch_tpu_torch.index.model import LOPQModel
 from columbiaimagesearch_tpu_torch.index.searcher import LOPQSearcherTorch
+from columbiaimagesearch_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
+from columbiaimagesearch_tpu_torch.parallel.sharded import ShardedLOPQIndex
 
 from tests.oracle_lopq import random_params
 
@@ -36,6 +40,24 @@ def _searcher(corpus, with_feats=False):
     s = LOPQSearcherTorch(LOPQModel.from_numpy(*params, device="cpu"))
     s.add_codes((coarse, fine), feats=feats if with_feats else None)
     return s
+
+
+def _entry(corpus, entry, with_feats=False):
+    """(searcher, wave call) of an entry point: one of the single-device
+    searcher's, or ``search_batch`` of a sharded index on two CPU shards
+    (its pairs always carry distances)."""
+    if entry != "sharded":
+        s = _searcher(corpus, with_feats)
+        return s, getattr(s, entry)
+    params, coarse, fine, feats, _ = corpus
+    idx = ShardedLOPQIndex(LOPQModel.from_numpy(*params, device="cpu"),
+                           mesh=make_mesh(axis=SHARD_AXIS,
+                                          devices=["cpu"] * 2))
+    idx.build(coarse, fine, feats=feats if with_feats else None)
+
+    def call(queries, with_dists=True, **kw):
+        return idx.search_batch(queries, **kw)
+    return idx, call
 
 
 @pytest.fixture
@@ -85,11 +107,13 @@ def _wave_tree(tree):
     return set(tree), {n: names.count(n) for n in set(names)}
 
 
-@pytest.mark.parametrize("entry", ["search_batch", "search_device_feats"])
+ENTRIES = ["search_batch", "search_device_feats", "sharded"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_grid_wave_spans(corpus, entry, tmp_path, no_gc):
-    s = _searcher(corpus)
+    s, call = _entry(corpus, entry)
     queries = corpus[-1]
-    call = getattr(s, entry)
     _, spans = _traced(tmp_path, lambda: call(queries, quota=300, limit=20,
                                               with_dists=True))
     pairs, counts = _wave_tree(_tree(spans))
@@ -105,11 +129,10 @@ def test_grid_wave_spans(corpus, entry, tmp_path, no_gc):
                      ("cis.results", "cis.search")}
 
 
-@pytest.mark.parametrize("entry", ["search_batch", "search_device_feats"])
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_brute_wave_spans(corpus, entry, tmp_path, no_gc):
-    s = _searcher(corpus, with_feats=True)
+    s, call = _entry(corpus, entry, with_feats=True)
     queries = corpus[-1]
-    call = getattr(s, entry)
     _, spans = _traced(tmp_path, lambda: call(
         queries, quota=300, limit=20, with_dists=True, rerank_nb=50))
     pairs, counts = _wave_tree(_tree(spans))
