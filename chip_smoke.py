@@ -10,8 +10,9 @@ and the exhaustive exact-ADC path at face-index scale (8,388,608 rows,
 V=256, M=8, S=256, D=128). Phases:
 
 0. device: requires CUDA; prints the card's name and power limit;
-1. build: compiles ``csrc/lut_build.cu`` and ``csrc/adc_scan.cu`` with
-   nvcc for sm_90a, one nvcc each, started together;
+1. build: compiles ``csrc/lut_build.cu``, ``csrc/adc_scan.cu`` and
+   ``csrc/cand_adc.cu`` with nvcc for sm_90a, one nvcc each, started
+   together;
 2. kernel vs plain: the LUT kernel against its plain PyTorch version at
    the headline shapes (NQ 1 and 100), a full serving wave's (NQ=32,
    B=64), the exhaustive path's all-V shape, every slot on one cluster,
@@ -24,7 +25,12 @@ V=256, M=8, S=256, D=128). Phases:
    call shorter than its launch is timed too), its plain version's, its
    bound (from this run's inputs: distinct
    probed matrices counted with ``torch.unique``) and share, and for the
-   scan one ``embedding_bag`` on the same inputs (``library_ms``);
+   scan one ``embedding_bag`` on the same inputs (``library_ms``); then
+   the table-free candidate kernel (``cand_adc``) against its plain
+   version at the release strip rung (NQ 1, 16 and 100, Q 11,264,
+   V=4096, Dh=128), the face strip rung and a small odd shape: +inf on
+   exactly the invalid slots, the kernel's time alone and the whole
+   route's (residuals, rotation, kernel), each with its bound;
 2a. train: the release configuration (conf/conf_search_production.json:
    ``lopq_pca`` 4096 -> 256, V=4096, M=8, S=256) through
    ``LOPQModelPCA.fit(n_init=1, random_state=0, pca_subsample=200000)``
@@ -57,8 +63,9 @@ V=256, M=8, S=256, D=128). Phases:
    ``lopq_encode`` and indexed by ``LOPQSearcherTorch`` with a float32
    rerank store on the card, request waves through ``search_batch`` with
    and without rerank, single ``search`` calls, and the headline query
-   (``lopq_query`` at a pinned B=64) — with the LUT kernel's launch count
-   read around that run, and result checks; then recall@{1, 10, 100}
+   (``lopq_query`` at a pinned B=64) — with the LUT and table-free
+   candidate kernels' launch counts read around that run, and result
+   checks; then recall@{1, 10, 100}
    without rerank over 100 queries against the exact neighbours, for the
    trained and a seeded model on the same 1,048,576-row sub-index (the
    trained one may not fall more than 0.01 below at 100) and for the
@@ -357,7 +364,7 @@ FACE_PHASE = dict(conf="conf/conf_search_face_local.json", wave=32,
 EMBED_RTOL, EMBED_ATOL = 1e-4, 1e-4
 DET_SCORE_ATOL = 1e-4
 
-KERNELS = ("lut_build", "adc_scan")
+KERNELS = ("lut_build", "adc_scan", "cand_adc")
 
 #: scan kernel checks: (label, rows, V, M, S, NQ, odd). The profile
 #: configuration of scripts/profile_exhaustive.py:28-35 (uniform random
@@ -1144,6 +1151,153 @@ def phase_kernel_check(dev, card, seed):
     return worst, out
 
 
+def cand_inputs(dev, g, NQ, Q, V, Dh, F, S, n_rows, Bi):
+    """Seeded inputs of the table-free candidate route at a rung's shapes
+    (the arguments of ``cand_dists``): cells of 1-3 consecutive rows, each
+    on one (slot0, slot1) drawn from the top-``Bi`` cluster ids (the
+    strided slices the query takes), n_valid within the last eighth of Q.
+    Every slot picks its ranks anew, so a query touches more clusters than
+    a real wave's quota does."""
+    Dsub = Dh // F
+    Cs = torch.randn(2, V, Dh, generator=g, device=dev)
+    Rs = torch.randn(2, V, Dh, Dh, generator=g, device=dev) / Dh ** 0.5
+    mus = 0.1 * torch.randn(2, V, Dh, generator=g, device=dev)
+    subs = torch.randn(2, F, S, Dsub, generator=g, device=dev)
+    x2 = torch.randn(NQ, 2, Dh, generator=g, device=dev)
+    codes = torch.randint(0, S, (n_rows, 2 * F), generator=g, device=dev,
+                          dtype=torch.uint8)
+    isel0, isel1 = (torch.rand(NQ, V, generator=g, device=dev)
+                    .argsort(dim=1)[:, :Bi] for _ in range(2))
+    length = torch.randint(1, 4, (NQ, Q), generator=g, device=dev)
+    ends = length.cumsum(dim=1)
+    j = torch.arange(Q, device=dev).expand(NQ, Q).contiguous()
+    cell = torch.searchsorted(ends, j, right=True)
+    begin = (ends - length).gather(1, cell)
+    start = torch.randint(0, n_rows - 3, (NQ, Q), generator=g, device=dev)
+    rows = start.gather(1, cell) + (j - begin)
+    slot0, slot1 = (torch.randint(0, Bi, (NQ, Q), generator=g, device=dev)
+                    .gather(1, cell) for _ in range(2))
+    n_valid = torch.randint(Q - Q // 8, Q + 1, (NQ,), generator=g,
+                            device=dev)
+    return (x2, Cs, Rs, mus, subs, codes, rows, isel0, isel1, slot0, slot1,
+            n_valid)
+
+
+def cand_work(args):
+    """Bytes and FLOPs of one ``cand_adc`` launch and of the whole route
+    (``cand_dists``) on these inputs. The kernel: per slot its n_valid
+    check and its output (4 B), per valid slot its row and two ranks (24
+    B), its M code bytes and 3 * M * Dsub FLOPs, each distinct (half,
+    cluster, query) rotated residual row read (Dh * 4 B, counted with
+    ``torch.unique``), each distinct probed id read (8 B) and both halves'
+    tables once. The route adds the residuals written and read (2V x NQ x
+    Dh float32 each way), the rotations read, the rotated rows written and
+    the rotation's 2 * 2V * NQ * Dh^2 FLOPs. Returns (kernel bytes, kernel
+    FLOPs, route bytes, route FLOPs, distinct rows)."""
+    x2, Cs, _, _, subs, codes, rows, isel0, isel1, slot0, slot1, n_valid = (
+        args)
+    NQ, Q = rows.shape
+    V, Dh = Cs.shape[1], Cs.shape[2]
+    F, S, Dsub = subs.shape[1], subs.shape[2], subs.shape[3]
+    M = codes.shape[1]
+    valid = torch.arange(Q, device=rows.device)[None, :] < n_valid[:, None]
+    n_ok = int(valid.sum())
+    n = torch.arange(NQ, device=rows.device)[:, None].expand(NQ, Q)
+    keys, ids = [], []
+    for s, (isel, slot) in enumerate(((isel0, slot0), (isel1, slot1))):
+        c = isel.gather(1, slot)
+        keys.append(((s * V + c) * NQ + n)[valid])
+        ids.append((s * NQ + n) * isel.shape[1] + slot)
+    distinct = int(torch.unique(torch.cat(keys)).numel())
+    id_reads = int(torch.unique(torch.cat([i[valid] for i in ids])).numel())
+    k_bytes = (NQ * Q * 4 + NQ * 8 + n_ok * (24 + M) + distinct * Dh * 4
+               + id_reads * 8 + 2 * F * S * Dsub * 4)
+    k_flops = n_ok * 3 * M * Dsub
+    r_bytes = (k_bytes + 2 * (2 * V * NQ * Dh * 4) + 2 * V * Dh * Dh * 4
+               + 2 * 2 * V * Dh * 4 + x2.numel() * 4)
+    r_flops = k_flops + 2 * 2 * V * NQ * Dh * Dh + 2 * 2 * V * NQ * Dh
+    return k_bytes, k_flops, r_bytes, r_flops, distinct
+
+
+#: table-free route checks: (label, NQ, Q, V, Dh, F, S, rows, Bi). The
+#: release strip rung (256, 16) (Q = 11,264 at quota 10,000; Bf = 2,049)
+#: at the served wave of 16, the bulk wave of 100 and one query, over the
+#: release index's 10,485,760 rows; the face strip rung (128, 8) (Bf =
+#: 256) at a bulk wave; a small shape with Dsub/4 = 3 (the kernel's
+#: unspecialised loop)
+CAND_CASES = [("release NQ=1", 1, 11264, 4096, 128, 4, 256, 10_485_760, 2049),
+              ("release NQ=16", 16, 11264, 4096, 128, 4, 256, 10_485_760,
+               2049),
+              ("release NQ=100", 100, 11264, 4096, 128, 4, 256, 10_485_760,
+               2049),
+              ("face NQ=100", 100, 11264, 256, 64, 4, 256, 8_388_608, 256),
+              ("small odd", 5, 1000, 37, 24, 2, 32, 3000, 20)]
+#: kernel vs plain tolerance: fp32 both sides; the kernel's subvector sums
+#: run in another order with fused multiply-adds, and its rotation is
+#: another batched GEMM than the plain version's einsum
+CAND_RTOL, CAND_ATOL = 1e-5, 1e-6
+
+
+def phase_cand_check(dev, card, seed):
+    """``cand_adc`` vs its plain version at the table-free rungs' shapes:
+    +inf on exactly the invalid slots, the distances within CAND_RTOL /
+    CAND_ATOL; device ms of the kernel alone and of the whole route
+    (CUDA-graph replays), the plain version's, each with its bound.
+    Returns {label: numbers}; raises if they disagree."""
+    from columbiaimagesearch_tpu_torch.index.cand_adc import (
+        cand_adc,
+        cand_dists,
+        cand_dists_plain,
+        rotated_residuals,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    out = {}
+    for label, NQ, Q, V, Dh, F, S, n_rows, Bi in CAND_CASES:
+        args = cand_inputs(dev, g, NQ, Q, V, Dh, F, S, n_rows, Bi)
+        before = cand_dists.launches
+        got = cand_dists(*args)
+        torch.cuda.synchronize()
+        if cand_dists.launches != before + 1:
+            raise AssertionError(f"cand_dists did not launch ({label})")
+        want = cand_dists_plain(*args)
+        invalid = (torch.arange(Q, device=dev)[None, :] >= args[-1][:, None])
+        ok_inf = bool(torch.equal(torch.isinf(got), invalid))
+        fin = ~invalid
+        err = (got[fin] - want[fin]).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / want[fin].abs().clamp(min=1e-30)).max())
+        ok = ok_inf and bool(torch.allclose(got, want, rtol=CAND_RTOL,
+                                            atol=CAND_ATOL))
+        pr = rotated_residuals(*args[:4])
+        rest = args[4:]
+        k_ms = graph_ms(lambda: cand_adc(pr, *rest), 20)
+        r_ms = graph_ms(lambda: cand_dists(*args), 10)
+        p_ms = kernel_ms(lambda: cand_dists_plain(*args), 3, reps=1)
+        del pr
+        k_bytes, k_flops, r_bytes, r_flops, distinct = cand_work(args)
+        kb_ms, kby = bound_of(k_bytes, k_flops)
+        rb_ms, rby = bound_of(r_bytes, r_flops)
+        log(f"kernel check: cand_adc {label} (NQ={NQ} Q={Q} V={V} Dh={Dh} "
+            f"F={F} S={S} rows={n_rows} Bi={Bi}, {distinct} distinct "
+            f"rotated rows read): max_abs_err={max_abs:.3e} "
+            f"max_rel_err={max_rel:.3e} (rtol {CAND_RTOL}, atol "
+            f"{CAND_ATOL}) inf_on_invalid={ok_inf} kernel_ms={k_ms:.4f} "
+            f"{bound_text(k_ms, k_bytes, k_flops)} route_ms={r_ms:.4f} "
+            f"route {bound_text(r_ms, r_bytes, r_flops)} plain_ms="
+            f"{p_ms:.4f} library_ms=none (no single PyTorch call gathers "
+            f"and scores the candidates) [{card}]")
+        if not ok:
+            raise AssertionError(f"cand_adc disagrees with plain ({label})")
+        out[label] = dict(ms=k_ms, route_ms=r_ms, plain_ms=p_ms,
+                          bound_ms=kb_ms, bound_by=kby, route_bound_ms=rb_ms,
+                          route_bound_by=rby, max_abs=max_abs)
+        del args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def _lut_check(label, fn, args, card):
     """``fn`` (a ``build_luts`` route on ``args``: x2, isel, Cs, Rs, mus,
     subs) against ``build_luts_plain`` within LUT_RTOL/LUT_ATOL; its
@@ -1191,7 +1345,9 @@ def _check_results(res, limit, what):
 
 def phase_main_path(dev, cfg, card, trained):
     """Index the corpus and answer waves on the trained release model's
-    index-space tables; returns (state, launches)."""
+    index-space tables; returns (state, launches: ``lut_build`` and
+    ``cand_adc`` on this path)."""
+    from columbiaimagesearch_tpu_torch.index.cand_adc import cand_dists
     from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
     from columbiaimagesearch_tpu_torch.index.lut import build_luts
     from columbiaimagesearch_tpu_torch.index.model import LOPQModel
@@ -1243,6 +1399,7 @@ def phase_main_path(dev, cfg, card, trained):
     q, lim, rnb = cfg["quota"], cfg["limit"], cfg["rerank_nb"]
 
     build_luts.launches = 0                     # counts the main path only
+    cand_dists.launches = 0
     t0 = time.perf_counter()
     plain_res = [searcher.search_batch(w, quota=q, limit=lim,
                                        with_dists=True, with_codes=False)
@@ -1265,12 +1422,13 @@ def phase_main_path(dev, cfg, card, trained):
                            d["codes"], d["cell_start"], q, V=cfg["V"],
                            B=cfg["B"], Q=Q, K=K) for w in waves]
     sync()
-    launches = build_luts.launches
+    launches = dict(lut=build_luts.launches, cand=cand_dists.launches)
     log(f"main path: {cfg['waves']} waves x {cfg['wave']} without rerank, "
         f"{cfg['waves']} with rerank_nb={rnb}, {len(single_res)} single "
         f"searches, {len(head_res)} headline lopq_query waves at "
         f"B={cfg['B']} in {time.perf_counter() - t0:.1f}s; lut_build "
-        f"launches={launches} ({searcher_launches} from the searcher); "
+        f"launches={launches['lut']} ({searcher_launches} from the "
+        f"searcher), cand_adc launches={launches['cand']}; "
         f"probe_stats waves={searcher.probe_stats['waves']} "
         f"brute_waves={searcher.probe_stats.get('brute_waves', 0)} "
         f"wave_log={searcher.probe_stats.get('wave_log')}")
@@ -3346,6 +3504,7 @@ def phase_serving(dev, card, trained, cfg=None):
         build_extr_str,
     )
     from columbiaimagesearch_tpu_torch.imgio.imgio import get_buffer_from_B64
+    from columbiaimagesearch_tpu_torch.index.cand_adc import cand_dists
     from columbiaimagesearch_tpu_torch.index.encode import lopq_encode
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         adc_scan_all,
@@ -3478,6 +3637,7 @@ def phase_serving(dev, card, trained, cfg=None):
         thread.start()
         build_luts.launches = 0                     # counts this path only
         adc_scan_all.launches = 0
+        cand_dists.launches = 0
         try:
             first_ms, reply = _post(port, "byB64", forms[1])
             _check_reply(reply, sha1s[1], "first request")
@@ -3529,7 +3689,8 @@ def phase_serving(dev, card, trained, cfg=None):
             server.server_close()
             thread.join(timeout=30)
             s.search_device_feats = live
-        launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches)
+        launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches,
+                        cand=cand_dists.launches)
         sizes = list(facade.request_batcher.batch_sizes)
         conc = [ms for rr in rounds for ms in rr]
         log(f"serving: first request (no prewarm, 1 client) {first_ms:.2f} "
@@ -3558,7 +3719,8 @@ def phase_serving(dev, card, trained, cfg=None):
             raise AssertionError("serving: no request took the coefficient "
                                  "route")
         log(f"serving: launches during the phase: lut_build "
-            f"{launches['lut']}, adc_scan {launches['adc']}")
+            f"{launches['lut']}, adc_scan {launches['adc']}, cand_adc "
+            f"{launches['cand']}")
         if launches["lut"] <= 0:
             raise AssertionError("serving: lut_build never launched")
         if max(sizes) <= 1:
@@ -5400,6 +5562,7 @@ def phase_tools(dev, card, cfg=None):
     in the phase."""
     import shutil
 
+    from columbiaimagesearch_tpu_torch.index.cand_adc import cand_dists
     from columbiaimagesearch_tpu_torch.index.exhaustive_adc import (
         adc_scan_all,
     )
@@ -5412,6 +5575,7 @@ def phase_tools(dev, card, cfg=None):
     os.makedirs(work)
     adc_scan_all.launches = 0                  # counts this phase only
     build_luts.launches = 0
+    cand_dists.launches = 0
     numbers = {}
     try:
         for name, step in (("face_build", tools_face_build),
@@ -5432,9 +5596,10 @@ def phase_tools(dev, card, cfg=None):
             f"{numbers['drop_weights_s']:.1f}s [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches)
+    launches = dict(lut=build_luts.launches, adc=adc_scan_all.launches,
+                    cand=cand_dists.launches)
     log(f"tools: lut_build launches={launches['lut']}, adc_scan launches="
-        f"{launches['adc']}")
+        f"{launches['adc']}, cand_adc launches={launches['cand']}")
     if dev.type == "cuda" and (launches["lut"] <= 0 or launches["adc"] <= 0):
         raise AssertionError("the tools phase did not launch both kernels")
     return numbers, launches
@@ -5998,8 +6163,12 @@ def phase_recall_parity(dev, card, cfg=None):
     (RECALL_PARITY) in three runs (RECALL_RUNS): (a) at 10,485,760 rows
     drawn on the host, (b) at 104,857,600 rows made on the card, (c)
     near-duplicate queries on (b)'s index; the artifacts go under
-    build/recall_parity/. Returns (numbers, ``lut_build`` launches)."""
+    build/recall_parity/. Returns (numbers, launches: ``lut_build`` and
+    ``cand_adc`` in the three runs)."""
+    from columbiaimagesearch_tpu_torch.index.cand_adc import cand_dists
+
     cfg = dict(RECALL_RUNS, **(cfg or {}))
+    cand_dists.launches = 0                    # counts this path only
     work = os.path.join(ROOT, "build", "recall_parity")
     os.makedirs(work, exist_ok=True)
     refs = {}
@@ -6011,7 +6180,10 @@ def phase_recall_parity(dev, card, cfg=None):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     b, c, refresh = recall_stream_runs(dev, card, work, cfg, model, refs)
-    launches = a["lut_launches"] + b["lut_launches"] + c["lut_launches"]
+    launches = dict(lut=a["lut_launches"] + b["lut_launches"]
+                    + c["lut_launches"], cand=cand_dists.launches)
+    log(f"recall parity: lut_build launches={launches['lut']}, cand_adc "
+        f"launches={launches['cand']}")
     return dict(adversarial_10M=a, stream_100M=b, neardup_100M=c,
                 refresh=refresh), launches
 
@@ -6050,6 +6222,8 @@ def main():
     clock.lap("build")
     worst, luts = phase_kernel_check(dev, card, cfg["seed"])
     clock.lap("kernel_check")
+    cands = phase_cand_check(dev, card, cfg["seed"])
+    clock.lap("cand_check")
     scan_worst, _ = phase_scan_check(dev, card, cfg["seed"])
     clock.lap("scan_check")
     trained = phase_train(dev, card)
@@ -6063,7 +6237,7 @@ def main():
     state, launches = phase_main_path(dev, cfg, card, trained)
     clock.lap("main_path")
     blocked = state.pop("blocked_encode")
-    if launches <= 0:
+    if launches["lut"] <= 0:
         raise AssertionError("the main path never launched lut_build")
     wide, wide_launches = phase_wide(dev, cfg, state, card)
     clock.lap("wide")
@@ -6125,19 +6299,28 @@ def main():
     http, http_launches = serving["sharded_http"]
     sharded["http"] = http
     sharded_launches += http_launches
-    log(f"launches: lut_build {launches} on the probed path + "
+    cand_launches = (launches["cand"] + serving["launches"]["cand"]
+                     + tools_launches["cand"] + parity_launches["cand"])
+    if cand_launches <= 0:
+        raise AssertionError("no main path launched cand_adc")
+    log(f"launches: lut_build {launches['lut']} on the probed path + "
         f"{wide_launches} on the wide-V path + "
         f"{sharded_launches} on the sharded path + "
         f"{serving['launches']['lut']} on the serving path + "
         f"{ex['lut_launches']} on the exhaustive path + {face_launches} on "
         f"the face probed path + {face_serving['launches']} on the face "
         f"serving path + {tools_launches['lut']} on the tools path + "
-        f"{parity_launches} on the recall parity path; "
+        f"{parity_launches['lut']} on the recall parity path; "
         f"adc_scan {ex['adc_launches']} on the exhaustive path + "
-        f"{tools_launches['adc']} on the tools path")
+        f"{tools_launches['adc']} on the tools path; cand_adc "
+        f"{launches['cand']} on the probed path + "
+        f"{serving['launches']['cand']} on the serving path + "
+        f"{tools_launches['cand']} on the tools path + "
+        f"{parity_launches['cand']} on the recall parity path")
     worst = max([worst] + [r["max_abs"] for k, r in face_probe.items()
                            if k.startswith("lut")])
     head, face = luts["headline NQ=100"], ex["face"][8]
+    cand = cands["release NQ=100"]
     name, power = card.rsplit(",", 1)
     log(json.dumps({"train": dict(
         trained["numbers"], plain=plain, train_index=train_index,
@@ -6167,10 +6350,10 @@ def main():
         "name": "lut_build", "route": "cuda",
         "source": "columbiaimagesearch_tpu_torch/csrc/lut_build.cu",
         "replaces": "columbiaimagesearch_tpu/index/tpu_query.py:71",
-        "launches": launches + wide_launches + sharded_launches
+        "launches": launches["lut"] + wide_launches + sharded_launches
         + serving["launches"]["lut"] + ex["lut_launches"] + face_launches
         + face_serving["launches"] + tools_launches["lut"]
-        + parity_launches,
+        + parity_launches["lut"],
         "max_abs_err": worst,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -6181,7 +6364,16 @@ def main():
         "launches": ex["adc_launches"] + tools_launches["adc"],
         "max_abs_err": max(scan_worst, ex["max_abs"]), "ms": face["ms"],
         "plain_ms": face["plain_ms"], "bound_ms": face["bound_ms"],
-        "bound_by": face["bound_by"], "library_ms": face["library_ms"]}]}))
+        "bound_by": face["bound_by"], "library_ms": face["library_ms"]}, {
+        "name": "cand_adc", "route": "cuda",
+        "source": "columbiaimagesearch_tpu_torch/csrc/cand_adc.cu",
+        "replaces": "none (the direct branch of "
+        "columbiaimagesearch_tpu/index/tpu_query.py:597-609)",
+        "launches": cand_launches,
+        "max_abs_err": max(c["max_abs"] for c in cands.values()),
+        "ms": cand["ms"], "route_ms": cand["route_ms"],
+        "plain_ms": cand["plain_ms"], "bound_ms": cand["bound_ms"],
+        "bound_by": cand["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

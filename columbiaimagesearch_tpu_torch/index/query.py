@@ -16,7 +16,8 @@ Per query:
 4. ADC tables for the 2B probed clusters (the LUT kernel, index/lut.py),
    and per-candidate ADC as a gather-and-sum over them — on square rungs
    with Q <= 16384; strip rungs and larger Q compute candidate distances
-   from rotated residuals directly, without tables;
+   from rotated residuals directly, without tables (index/cand_adc.py, one
+   kernel on the card);
 5. masked top-K.
 
 Ties: ``lax.top_k`` keeps the lower index first; every selection here is a
@@ -40,6 +41,7 @@ both modes return the same rows and distances.
 import numpy as np
 import torch
 
+from columbiaimagesearch_tpu_torch.index.cand_adc import cand_dists
 from columbiaimagesearch_tpu_torch.index.lut import build_luts
 
 #: square rungs up to this many cells sort their grid (tpu_query.py:244)
@@ -107,23 +109,6 @@ def _strip_region(B, SB, SL, device):
     cg = torch.where(g < s1, g % SL,
                      torch.where(g < s2, (g - s1) % B, (g - s2) % SB))
     return rg, cg
-
-
-def _half_dists(x_s, C_s, R_s, mu_s, sub_s, isel, slot, cc):
-    """Candidate ADC distances of one half from rotated residuals: rotate
-    the residual of every cluster, gather each candidate's, and sum the
-    squared subvector differences (tpu_query.py:597-609)."""
-    F, Dsub = sub_s.shape[0], sub_s.shape[2]
-    NQ, Q = slot.shape
-    r = x_s[:, None, :] - C_s[None] - mu_s[None]             # [NQ, V, Dh]
-    pr_all = torch.einsum("vij,nvj->nvi", R_s, r)            # [NQ, V, Dh]
-    clus = isel.gather(1, slot)                               # [NQ, Q]
-    pr = pr_all.gather(1, clus[:, :, None].expand(NQ, Q, pr_all.shape[2]))
-    acc = torch.zeros((NQ, Q), dtype=torch.float32, device=x_s.device)
-    for f in range(F):
-        diff = pr[:, :, f * Dsub:(f + 1) * Dsub] - sub_s[f][cc[:, :, f]]
-        acc = acc + (diff * diff).sum(dim=-1)
-    return acc
 
 
 def _bucket_bounds(cell_start, cells_sorted, cells):
@@ -334,12 +319,13 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
         rows, slot0, slot1, total, n_cells, d_stop = _wide_square_slots(
             td0, td1, isel0, isel1, cell_start, quota, V, Q, cells_sorted)
     grid_ok = d_stop <= out_grid_min
-    valid = j < total.clamp(max=Q)[:, None]
+    n_valid = total.clamp(max=Q)
+    valid = j < n_valid[:, None]
     rows = torch.where(valid, rows, 0)
 
     # --- 4+5. per-candidate ADC distances ----------------------------------
-    cand = codes[rows].long()                                 # [NQ, Q, M]
     if lut:
+        cand = codes[rows].long()                             # [NQ, Q, M]
         isel = torch.stack([isel0, isel1], dim=1).to(torch.int32)
         luts = build_luts(x2.contiguous(), isel.contiguous(), Cs, Rs, mus,
                           subs)
@@ -351,12 +337,10 @@ def lopq_query(X, Cs, Rs, mus, subs, codes, cell_start, quota, *, V, B, Q,
                  .sum(dim=-1)
                  + flat.gather(1, idx1.reshape(NQ, -1)).reshape(NQ, Q, F)
                  .sum(dim=-1))
+        dists = torch.where(valid, dists, float("inf"))
     else:
-        dists = (_half_dists(x2[:, 0], Cs[0], Rs[0], mus[0], subs[0],
-                             isel0, slot0, cand[:, :, :F])
-                 + _half_dists(x2[:, 1], Cs[1], Rs[1], mus[1], subs[1],
-                               isel1, slot1, cand[:, :, F:]))
-    dists = torch.where(valid, dists, float("inf"))
+        dists = cand_dists(x2, Cs, Rs, mus, subs, codes, rows, isel0, isel1,
+                           slot0, slot1, n_valid)
     top, ti = _ascending(dists, K)
     top_rows = torch.where(torch.isfinite(top), rows.gather(1, ti), -1)
     return top_rows, top, total, n_cells, grid_ok
